@@ -30,7 +30,7 @@ import numpy as np
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--backend", default=None, choices=[None, "cpu", "tpu"])
+    ap.add_argument("--backend", default=None, choices=[None, "cpu", "gpu"])
     ap.add_argument("--edits", type=int, default=12)
     ap.add_argument("--size", default="512",
                     help="square pixels (512) or WxH (3840x2160)")

@@ -2,13 +2,12 @@
 """Summarize a jax.profiler trace directory: top device ops by total time.
 
 jax.profiler.start_trace writes a TensorBoard-format trace; this reads
-the newest ``*.trace.json.gz`` under the directory and aggregates TPU/
-device-lane complete events by name — enough to attribute a kernel's
-frame time to DMA waits, fused ops, and Mosaic regions without a
-TensorBoard instance.
+the newest ``*.trace.json.gz`` under the directory and aggregates
+device-lane complete events by name — enough to attribute a frame's time
+to XLA fusions and custom kernels without a TensorBoard instance.
 
-Usage: python benchmarks/trace_top.py /tmp/mctrace/mc [--n 30]
-       python benchmarks/trace_top.py /tmp/mctrace/mc --grep fusion
+Usage: python benchmarks/trace_top.py TRACE_DIR [--n 30]
+       python benchmarks/trace_top.py TRACE_DIR --grep fusion
 """
 
 import argparse
@@ -59,13 +58,13 @@ def main() -> int:
             print("tid", k, v)
         return 0
 
-    # Keep device-side lanes: XLA op / TensorCore lanes, skip python/host.
+    # Keep device-side lanes (GPU streams, XLA ops), skip python/host.
     def is_device(e):
         pname = pid_names.get(e.get("pid"), "").lower()
         tname = tid_names.get((e.get("pid"), e.get("tid")), "").lower()
         return (
-            "tpu" in pname or "/device" in pname or "xla" in tname
-            or "tensorcore" in tname or "steps" in tname or "ops" in tname
+            "/device" in pname or "gpu" in pname or "xla" in tname
+            or "stream" in tname or "steps" in tname or "ops" in tname
         )
 
     total = collections.Counter()

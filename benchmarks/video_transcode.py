@@ -10,8 +10,8 @@ guessed:
 
   * decode-only: VideoFrames iteration rate (native libav -> RGBA8)
   * encode-only: VideoEncoder rate on a constant frame (host H.264)
-  * compute-only: the flagship program's device fps (BENCH.md batch
-    section measures this precisely; a quick sequenced run here)
+  * compute-only: the flagship program's device fps (a quick sequenced
+    run)
 
 Usage: python benchmarks/video_transcode.py [frames [width height]]
 """

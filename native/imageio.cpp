@@ -1,6 +1,6 @@
 // Native host image I/O for reforge-tpu.
 //
-// The TPU-native counterpart of the reference's ffmpeg FFI layer
+// This program's counterpart of the reference's ffmpeg FFI layer
 // (reference: src/imagefileio.rs): decode the first frame of any
 // libav-supported image/video, Lanczos-resize + pixel-format-convert it
 // straight into a caller-provided RGBA8 buffer (imagefileio.rs:129-184),

@@ -1,8 +1,8 @@
-"""reforge-tpu: a TPU-native image-processing graph engine.
+"""reforge-tpu: an image-processing graph engine in JAX, run on GPUs.
 
-A brand-new framework with the capabilities of calkhaz/reforge (a Vulkan
+A framework with the capabilities of calkhaz/reforge (a Vulkan
 compute-shader graph engine): a tiny pipeline DSL describes a filter graph;
-each node compiles to a JAX/Pallas image kernel; linear chains fuse into a
+each node compiles to a JAX image kernel; the whole graph fuses into a
 single XLA-jitted program; configs and kernels live-reload with
 keep-last-good error handling; images decode/encode on the host via a native
 libav extension; output goes to a live preview or an image file.

@@ -1,6 +1,6 @@
 """Pipeline-config DSL: lexer, parser, and semantic pass.
 
-TPU-native re-implementation of the reference's config layer
+JAX re-implementation of the reference's config layer
 (reference: src/config/ — grammar src/config/config_grammar.lalrpop,
 semantics src/config/config.rs).
 """

@@ -1,6 +1,6 @@
 """GLSL-subset -> JAX compiler.
 
-The TPU-era replacement for the reference's shaderc + spirv-reflect path
+This program's replacement for the reference's shaderc + spirv-reflect path
 (reference: src/vulkan/shader.rs): GLSL compute shaders parse to an AST,
 ``layout`` declarations are reflected into kernel bindings (images, UBO
 parameter blocks), and the shader body is vectorized by the interpreter in
@@ -329,15 +329,13 @@ def translate_shader(
         interp = Interp(
             shader,
             height=ctx.block_height,
-            width=ctx.block_width,
+            width=ctx.width,
             images_in=images,
             params=params,
             time=ctx.time,
             row_offset=ctx.row_offset,
             global_height=ctx.height,
             buffers_in=buffers,
-            col_offset=ctx.col_offset,
-            global_width=ctx.width,
         )
         outputs = interp.run_main()
         # Every declared output gets a value; unwritten ones pass through
@@ -345,7 +343,7 @@ def translate_shader(
         for out_name in bindings["images_out"]:
             if out_name not in outputs:
                 outputs[out_name] = jnp.zeros(
-                    (4, ctx.block_height, ctx.block_width), jnp.float32
+                    (4, ctx.block_height, ctx.width), jnp.float32
                 )
         for out_name in bindings["ssbos_out"]:
             outputs[out_name] = interp.buffers[out_name]
@@ -369,7 +367,6 @@ def translate_shader(
             stats = {
                 "max_shift": 0, "gather": False,
                 "edge_shift": False, "zero_shift": False,
-                "dyn_gather": False,
             }
 
             def dry(time):
@@ -390,22 +387,18 @@ def translate_shader(
             stats2 = dry_stats(96, 80)
         except Exception:
             # conservatively unshardable on dry failure
-            return (None, "edge", False)
+            return (None, "edge")
         keys = ("max_shift", "gather", "edge_shift", "zero_shift")
         if any(stats[k] != stats2[k] for k in keys):
-            return (None, "edge", False)  # extent-dependent halo: gather path
-        # Pallas-block eligibility (mc megakernel point stages): the traced
-        # ops must all be Mosaic-compilable — per-lane local-array gathers
-        # (take_along_axis) and workgroup-shared lowerings are not.
-        block_ok = not stats["dyn_gather"] and not shader.shared
+            return (None, "edge")  # extent-dependent halo: gather path
         if stats["gather"]:
-            return (None, "edge", False)
+            return (None, "edge")
         if stats["edge_shift"] and stats["zero_shift"]:
             # Mixed border conventions: one halo-pad mode can't represent
             # both, so fall back to the (always-correct) gather path.
-            return (None, "edge", block_ok)
+            return (None, "edge")
         border = "zero" if stats["zero_shift"] else "edge"
-        return (stats["max_shift"], border, block_ok)
+        return (stats["max_shift"], border)
 
     def halo_of(params_key: tuple) -> Optional[int]:
         return _reflect_spatial(params_key)[0]
@@ -422,15 +415,7 @@ def translate_shader(
         param_aliases=bindings["param_aliases"],
         halo=lambda params: halo_of(tuple(sorted(params.items()))),
         border=lambda params: _reflect_spatial(tuple(sorted(params.items())))[1],
-        mc_block_ok=lambda params: _reflect_spatial(
-            tuple(sorted(params.items()))
-        )[2],
         source_path=path,
         doc=f"GLSL kernel translated from {path or name}",
     )
-    # Content identity for the conv-synthesis disk cache (glsl/affine.py):
-    # keyed by what was actually compiled, immune to mtime games.
-    import hashlib
-
-    spec.glsl_source_hash = hashlib.sha256(source.encode()).hexdigest()  # type: ignore[attr-defined]
     return spec

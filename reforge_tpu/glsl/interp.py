@@ -155,21 +155,13 @@ class Interp:
         row_offset: Any = 0,  # global row of local row 0 (may be traced)
         global_height: Optional[int] = None,  # imageSize/clamp extent
         buffers_in: Optional[dict[str, Any]] = None,  # block name -> (N,) f32
-        col_offset: int = 0,  # global column of local column 0 (static)
-        global_width: Optional[int] = None,  # imageSize/clamp extent
     ):
         self.shader = shader
         self.h = height  # local block height (array shapes)
         self.w = width
         self.row_offset = row_offset
         self.global_h = global_height if global_height is not None else height
-        # Column analog of row_offset/global_h, for the mc megakernel's
-        # block evaluation of pointwise GLSL nodes: blocks may extend past
-        # the image's left edge (downstream conv halos), so local column 0
-        # sits at a negative global column.  Columns are never sharded;
-        # the offset is always a static int.
-        self.col_offset = col_offset
-        self.global_w = global_width if global_width is not None else width
+        self.global_w = width  # columns are never sharded
         self.images_in = images_in
         self.params = params
         self.time = time
@@ -308,13 +300,10 @@ class Interp:
         return got
 
     def _install_builtin_idents(self) -> None:
-        # Globally correct coordinates on a sharded slab / halo-extended
-        # block: local iota plus the global offset.  The Origin tags stay
-        # local-relative — shifted loads index the local block.
+        # Globally correct coordinates on a sharded slab: local iota plus
+        # the global row offset.  The Origin tags stay local-relative —
+        # shifted loads index the local block.
         gx_data = self._iota("x")
-        coff = self.col_offset
-        if coff != 0:
-            gx_data = gx_data + jnp.int32(coff)
         gx = Val("uint", gx_data, Origin("x", 0))
         gy_data = self._iota("y")
         off = self.row_offset
@@ -2431,11 +2420,6 @@ class Interp:
         Leaves stack to one (n, h, w) array; a single take_along_axis
         resolves every lane (XLA lowers it to a vectorized select tree
         for small n)."""
-        # Recorded for the mc planner: take_along_axis lowers to a gather
-        # XLA op that Mosaic may refuse inside a Pallas kernel, so shaders
-        # using per-lane local-array gathers stay off the in-kernel
-        # block-evaluation path (they still run everywhere else).
-        self.stats["dyn_gather"] = True
         stacked = jnp.stack(
             [
                 jnp.broadcast_to(
@@ -3503,8 +3487,6 @@ class Interp:
         ys = jnp.broadcast_to(self._as_i32(coord.data[1]), hw)
         if not (isinstance(self.row_offset, int) and self.row_offset == 0):
             ys = ys - jnp.asarray(self.row_offset, jnp.int32)
-        if self.col_offset != 0:
-            xs = xs - jnp.int32(self.col_offset)
         inb = (xs >= 0) & (xs < self.w) & (ys >= 0) & (ys < self.h)
         mask = self._effective_mask(scope)
         keep = inb if mask is None else jnp.logical_and(inb, mask)
@@ -3588,8 +3570,6 @@ class Interp:
             if not (isinstance(off, int) and off == 0):
                 ys = ys + jnp.asarray(off, jnp.int32)
             xs = self._as_i32(self._iota("x"))
-            if self.col_offset != 0:
-                xs = xs + jnp.int32(self.col_offset)
             self._gids = (ys // lsy) * groups_x + xs // lsx
         return self._gids
 
@@ -3818,8 +3798,6 @@ class Interp:
         ys = jnp.broadcast_to(self._as_i32(coord.data[1]), hw)
         if not (isinstance(self.row_offset, int) and self.row_offset == 0):
             ys = ys - jnp.asarray(self.row_offset, jnp.int32)
-        if self.col_offset != 0:
-            xs = xs - jnp.int32(self.col_offset)
         inb = (xs >= 0) & (xs < self.w) & (ys >= 0) & (ys < self.h)
         mask = self._effective_mask(scope)
         keep = inb if mask is None else jnp.logical_and(inb, mask)

@@ -1,6 +1,6 @@
 """Graph layer: synthesis, scheduling, and fused XLA program compilation.
 
-TPU-native replacement for the reference's pipeline-graph/resource layer
+JAX replacement for the reference's pipeline-graph/resource layer
 (reference: src/vulkan/pipeline_graph.rs, src/vulkan/pipeline.rs).
 """
 

@@ -1,6 +1,6 @@
 """Host image I/O and color management.
 
-TPU-native replacement for the reference's ffmpeg FFI layer
+JAX replacement for the reference's ffmpeg FFI layer
 (reference: src/imagefileio.rs) plus the sRGB load/store conversions the
 reference performs with Vulkan sRGB-image blits (src/render.rs:264-312).
 """

@@ -5,7 +5,10 @@ to libreforge_io.so and loaded via ctypes) — the analog of the reference's
 raw ffmpeg FFI (reference: src/imagefileio.rs): decode any libav-supported
 image or video's first frame with Lanczos resize straight into an RGBA8
 buffer, and PNG-encode at max compression.  Falls back to PIL when the .so
-is absent (e.g. no toolchain), keeping behavior identical.
+is absent (e.g. no toolchain), keeping behavior identical.  With neither,
+8-bit PNGs (gray, RGB, RGBA; no interlace) still decode and encode through
+a small numpy + zlib codec below, at the image's own size; JPEG, resizing
+and video then raise ImageFileError.
 
 All APIs traffic in numpy uint8 arrays of shape (H, W, 4), sRGB-encoded;
 linearization happens on device (io/srgb.py).
@@ -15,6 +18,8 @@ from __future__ import annotations
 
 import ctypes
 import os
+import struct
+import zlib
 from typing import Optional
 
 import numpy as np
@@ -142,14 +147,14 @@ class ImageFileDecoder:
             h = ctypes.c_int()
             lib.rf_decoder_dims(self._native, ctypes.byref(w), ctypes.byref(h))
             self.width, self.height = w.value, h.value
-        else:
-            from PIL import Image
-
+        elif _pil_image() is not None:
             try:
-                with Image.open(path) as im:
+                with _pil_image().open(path) as im:
                     self.width, self.height = im.size
             except Exception as e:
                 raise ImageFileError(f"Failed to open '{path}': {e}") from e
+        else:
+            self.height, self.width = png_size(path)
 
     def decode(self, width: int, height: int) -> np.ndarray:
         """Return (height, width, 4) uint8 RGBA, Lanczos-resized."""
@@ -168,8 +173,15 @@ class ImageFileDecoder:
             if rc != 0:
                 raise ImageFileError(err.value.decode() or "decode failed")
             return out
-        from PIL import Image
-
+        Image = _pil_image()
+        if Image is None:
+            rgba = png_read(self.path)
+            if rgba.shape[:2] != (height, width):
+                raise ImageFileError(
+                    f"resizing {self.path} to {width}x{height} needs the "
+                    "native io backend (make -C native) or PIL"
+                )
+            return rgba
         with Image.open(self.path) as im:
             im = im.convert("RGBA")
             if (width, height) != im.size:
@@ -344,8 +356,15 @@ def encode(path: str, rgba: np.ndarray) -> None:
         if rc != 0:
             raise ImageFileError(err.value.decode() or "encode failed")
         return
-    from PIL import Image
-
+    Image = _pil_image()
+    if Image is None:
+        if ext != ".png":
+            raise ImageFileError(
+                f"writing {ext or 'extension-less'} files needs the native io "
+                "backend (make -C native) or PIL; PNG works without either"
+            )
+        png_write(path, rgba)
+        return
     im = Image.fromarray(rgba, "RGBA")
     if ext in (".jpg", ".jpeg"):
         im = im.convert("RGB")
@@ -356,3 +375,156 @@ def encode(path: str, rgba: np.ndarray) -> None:
 
 def native_backend_available() -> bool:
     return _native_lib() is not None
+
+
+def _pil_image():
+    """PIL's Image module, or None when PIL is not installed."""
+    try:
+        from PIL import Image
+    except ImportError:
+        return None
+    return Image
+
+
+# ---- numpy + zlib PNG codec ------------------------------------------------
+#
+# The fallback when neither the native extension nor PIL is importable:
+# 8-bit gray (color type 0), RGB (2) and RGBA (6), no interlace, any of the
+# five row filters on read; RGBA with the Up filter on write.
+
+_PNG_SIG = b"\x89PNG\r\n\x1a\n"
+_PNG_CHANNELS = {0: 1, 2: 3, 6: 4}
+
+
+def _png_chunks(data: bytes, path: str):
+    if data[:8] != _PNG_SIG:
+        raise ImageFileError(f"'{path}' is not a PNG file")
+    pos = 8
+    while pos + 8 <= len(data):
+        length, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + length]
+        if len(body) != length:
+            raise ImageFileError(f"'{path}': truncated PNG chunk")
+        yield kind, body
+        pos += 12 + length
+        if kind == b"IEND":
+            return
+    raise ImageFileError(f"'{path}': PNG has no IEND chunk")
+
+
+def _png_header(body: bytes, path: str) -> tuple[int, int, int]:
+    w, h, depth, ctype, _comp, _filt, interlace = struct.unpack(">IIBBBBB", body)
+    if depth != 8 or ctype not in _PNG_CHANNELS or interlace != 0:
+        raise ImageFileError(
+            f"'{path}': only 8-bit gray/RGB/RGBA non-interlaced PNGs can be "
+            "read without the native io backend or PIL"
+        )
+    return h, w, _PNG_CHANNELS[ctype]
+
+
+def png_size(path: str) -> tuple[int, int]:
+    """(height, width) of a PNG file."""
+    try:
+        with open(path, "rb") as f:
+            head = f.read(33)
+    except OSError as e:
+        raise ImageFileError(f"Failed to open '{path}': {e}") from e
+    kind, body = next(_png_chunks(head, path))
+    if kind != b"IHDR":
+        raise ImageFileError(f"'{path}': PNG does not start with IHDR")
+    h, w, _ = _png_header(body, path)
+    return h, w
+
+
+def _unfilter(raw: np.ndarray, h: int, stride: int, bpp: int,
+              path: str) -> np.ndarray:
+    rows = raw.reshape(h, stride + 1)
+    kinds, data = rows[:, 0], rows[:, 1:].astype(np.int32)
+    out = np.zeros((h, stride), np.int32)
+    prior = np.zeros(stride, np.int32)
+    for y in range(h):
+        line, kind = data[y], kinds[y]
+        if kind == 0:
+            cur = line
+        elif kind == 1:  # Sub: running sum per byte lane, mod 256
+            cur = np.cumsum(line.reshape(-1, bpp), axis=0).reshape(-1) & 255
+        elif kind == 2:  # Up
+            cur = (line + prior) & 255
+        elif kind in (3, 4):  # Average, Paeth: sequential along the row
+            cur = line.copy()
+            for x in range(stride):
+                a = cur[x - bpp] if x >= bpp else 0
+                b = prior[x]
+                if kind == 3:
+                    pred = (a + b) >> 1
+                else:
+                    c = prior[x - bpp] if x >= bpp else 0
+                    p = a + b - c
+                    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+                    pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+                cur[x] = (cur[x] + pred) & 255
+        else:
+            raise ImageFileError(f"'{path}': bad PNG filter type {kind}")
+        out[y] = cur
+        prior = cur
+    return out.astype(np.uint8)
+
+
+def png_read(path: str) -> np.ndarray:
+    """Decode a PNG to (H, W, 4) uint8 RGBA (gray and RGB gain opaque alpha)."""
+    try:
+        with open(path, "rb") as f:
+            data = f.read()
+    except OSError as e:
+        raise ImageFileError(f"Failed to open '{path}': {e}") from e
+    header = None
+    idat = []
+    for kind, body in _png_chunks(data, path):
+        if kind == b"IHDR":
+            header = _png_header(body, path)
+        elif kind == b"IDAT":
+            idat.append(body)
+    if header is None:
+        raise ImageFileError(f"'{path}': PNG has no IHDR chunk")
+    h, w, ch = header
+    try:
+        raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    except zlib.error as e:
+        raise ImageFileError(f"'{path}': corrupt PNG data: {e}") from e
+    if raw.size != h * (w * ch + 1):
+        raise ImageFileError(f"'{path}': PNG data size does not match IHDR")
+    px = _unfilter(raw, h, w * ch, ch, path).reshape(h, w, ch)
+    if ch == 4:
+        return px
+    rgb = np.repeat(px, 3, axis=2) if ch == 1 else px
+    alpha = np.full((h, w, 1), 255, np.uint8)
+    return np.concatenate([rgb, alpha], axis=2)
+
+
+def png_write(path: str, rgba: np.ndarray, level: int = 6) -> None:
+    """Encode (H, W, 4) uint8 RGBA as a PNG (Up filter on every row)."""
+    rgba = np.ascontiguousarray(rgba, dtype=np.uint8)
+    if rgba.ndim != 3 or rgba.shape[2] != 4:
+        raise ImageFileError(f"expected (H, W, 4) uint8 RGBA, got {rgba.shape}")
+    h, w = rgba.shape[:2]
+    rows = rgba.reshape(h, w * 4)
+    up = rows.copy()
+    up[1:] = rows[1:] - rows[:-1]  # uint8 arithmetic wraps mod 256
+    filtered = np.concatenate([np.full((h, 1), 2, np.uint8), up], axis=1)
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        crc = zlib.crc32(kind + body) & 0xFFFFFFFF
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", crc)
+
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 6, 0, 0, 0)
+    data = (
+        _PNG_SIG
+        + chunk(b"IHDR", ihdr)
+        + chunk(b"IDAT", zlib.compress(filtered.tobytes(), level))
+        + chunk(b"IEND", b"")
+    )
+    try:
+        with open(path, "wb") as f:
+            f.write(data)
+    except OSError as e:
+        raise ImageFileError(f"Failed to write '{path}': {e}") from e

@@ -1,6 +1,6 @@
 """Kernel layer: specs, reflection, builtin library, and source loaders.
 
-The TPU-native replacement for the reference's GLSL shader layer
+The JAX replacement for the reference's GLSL shader layer
 (reference: src/vulkan/shader.rs + shaders/).
 """
 

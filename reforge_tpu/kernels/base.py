@@ -1,6 +1,6 @@
 """Kernel specification, registry, and binding reflection.
 
-A *kernel* is the TPU-native analog of one of the reference's GLSL compute
+A *kernel* is this program's analog of one of the reference's GLSL compute
 shaders (reference: src/vulkan/shader.rs).  Where the reference compiles GLSL
 to SPIR-V and reflects descriptor bindings from the binary
 (src/vulkan/shader.rs:106-160), we declare bindings directly on a
@@ -10,10 +10,9 @@ names against these bindings exactly like ``synthesize_config``
 (src/vulkan/vkutils.rs:140-196).
 
 Data model:
-  * Images are planar ``float32[4, H, W]`` (RGBA, channels-leading).  The
-    trailing (H, W) dims tile cleanly onto the TPU's (8, 128) vector lanes;
-    an interleaved HWC layout would waste 31/32 lanes on the 4-wide channel
-    dim.
+  * Images are planar ``float32[4, H, W]`` (RGBA, channels-leading): every
+    kernel works on whole (H, W) planes, rows contiguous, so loads along a
+    row coalesce and no lane is spent on the 4-wide channel dim.
   * Pixel values are *linear* light; sRGB conversion happens at the I/O
     boundary (mirroring the reference's sRGB-image blit on load,
     src/render.rs:286-312).
@@ -105,24 +104,14 @@ class KernelContext:
     fmt: str = "rgba32f"  # "rgba8" | "rgba32f"
     row_offset: Any = 0  # global row index of local row 0 (may be traced)
     local_height: Optional[int] = None  # rows in the local block
-    # Column analog of row_offset/local_height: the strip megakernel
-    # evaluates pointwise nodes on blocks extended past the image's left
-    # edge (halo columns for downstream convs), where local column 0 sits
-    # at a negative global column.  Static (columns are never sharded).
-    col_offset: int = 0  # global column index of local column 0
-    local_width: Optional[int] = None  # columns in the local block
 
     @property
     def block_height(self) -> int:
         return self.local_height if self.local_height is not None else self.height
 
     @property
-    def block_width(self) -> int:
-        return self.local_width if self.local_width is not None else self.width
-
-    @property
     def local_shape(self) -> tuple[int, int]:
-        return (self.block_height, self.block_width)
+        return (self.block_height, self.width)
 
     @property
     def extent(self) -> tuple[int, int]:
@@ -163,54 +152,6 @@ class KernelSpec:
     border: Callable[[Mapping[str, Any]], str] = lambda params: "edge"
     source_path: Optional[str] = None
     doc: str = ""
-    # Separable-conv structure, when the kernel IS one: conv_weights(params)
-    # returns (wh, ww) tap vectors (or None to opt out for these params) and
-    # conv_epilogue(ctx, input_image, blurred, params) produces the node's
-    # output from the blur result.  The graph program bundles same-input
-    # conv nodes into ONE multi-output Pallas kernel using this (the VPU tap
-    # loop is load-bound, so convs sharing an input share its strip loads —
-    # see pallas_ops.sep_conv_fused_multi).
-    conv_weights: Optional[Callable[[Mapping[str, Any]], Optional[tuple]]] = None
-    conv_epilogue: Optional[Callable[..., Any]] = None
-    # Channel-local forms for whole-graph strip fusion: cw_fn(ctx, ci,
-    # ins, params) -> (h, w) block computes ONE channel plane (ci is a
-    # traced channel index; channel-dependent behavior uses jnp.where).
-    # conv_epilogue_cw(ctx, ci, x_c, blurred_c, params) is the channel
-    # form of conv_epilogue.  Kernels with these fuse into the strip
-    # megakernel (graph/program.py) — the whole graph in one Pallas pass.
-    cw_fn: Optional[Callable[..., Any]] = None
-    conv_epilogue_cw: Optional[Callable[..., Any]] = None
-    # Coordinate-plane hoist for strip fusion: when a pointwise node's
-    # per-pixel work factors into a data-independent, time-independent
-    # coordinate term (vignette's radial fade, scanlines' row mask),
-    # cw_coord_plane(ctx, params) -> (h, w) f32 builds that plane ONCE at
-    # program-build time and the megakernel streams it in as a side input
-    # (one extra DMA block per strip, overlapped with the tap passes)
-    # instead of recomputing iota/sqrt/smoothstep per channel per frame
-    # on the VPU.  cw_plane_fn(ctx, ci, ins, params, plane) is the cw_fn
-    # form consuming the prebuilt block; cw_fn remains the fallback on
-    # every other path (per-node, sharded, CPU).
-    cw_coord_plane: Optional[Callable[..., Any]] = None
-    cw_plane_fn: Optional[Callable[..., Any]] = None
-    # Multi-channel strip-fusion forms (graph_strip_fused_mc):
-    #   * conv_pre(ctx, x, params) -> image: node-internal pointwise map
-    #     applied BEFORE the separable conv (e.g. bloom's threshold mask).
-    #     Must be coordinate-independent (its out-of-image halo values are
-    #     produced from edge-replicated inputs).
-    #   * conv_epilogue_identity: True when conv_epilogue just returns the
-    #     blur (lets the megakernel skip materializing a blur buffer).
-    #   * mc_stencil_fn(ctx, tap, params) -> (4, h, w): small-radius
-    #     neighborhood form; tap(dy, dx) is a (4, h, w) shifted view with
-    #     dy/dx in [0, 2*halo] (center = tap(r, r)), edge-replicated at
-    #     image borders.
-    conv_pre: Optional[Callable[..., Any]] = None
-    conv_epilogue_identity: bool = False
-    mc_stencil_fn: Optional[Callable[..., Any]] = None
-    # File-loaded (GLSL) kernels: True when ``fn`` may be evaluated on
-    # halo-extended VMEM blocks INSIDE the mc megakernel (pointwise, no
-    # Mosaic-hostile ops).  None for builtins, whose planner eligibility
-    # is carried by the cw/stencil/conv forms above.
-    mc_block_ok: Optional[Callable[[Mapping[str, Any]], bool]] = None
 
     # ---- reflection (the SPIR-V descriptor-enumeration analog) ---------
 

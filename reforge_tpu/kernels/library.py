@@ -3,15 +3,14 @@
 The reference ships a single ``passthrough.comp`` shader and demonstrates
 blur/edge/sharpen graphs in its README gifs without shipping them
 (reference: shaders/passthrough.comp, README.md:11-23).  This library
-provides those filters and more as first-class TPU kernels so stock configs
-work out of the box; any of them can be overridden by a same-named ``.comp``
-or ``.py`` file in the shader path (semantics.add_file_paths probes files
+provides those filters and more as builtin kernels so stock configs work
+out of the box; any of them can be overridden by a same-named ``.comp`` or
+``.py`` file in the shader path (semantics.add_file_paths probes files
 before the registry).
 
 All kernels operate on linear-light planar ``f32[4, H, W]`` and are pure jnp
-— XLA fuses chains of them into single programs.  Hot separable
-convolutions additionally have Pallas TPU implementations (pallas_ops.py),
-selected at graph-compile time on TPU backends.
+— XLA fuses chains of them into single programs.  Separable convolutions go
+through ``ops.sep_conv``, which runs the fused CUDA kernel on a GPU.
 """
 
 from __future__ import annotations
@@ -25,8 +24,6 @@ import numpy as np
 from .base import kernel
 from . import ops
 from .ops import (
-    AXIS_H,
-    AXIS_W,
     box_weights,
     conv2d,
     gaussian_blur,
@@ -133,15 +130,6 @@ def tonemap(ctx, input_image, *, exposure=1.0, aces=True):
     return map_rgb(input_image, lambda rgb: f(rgb * exposure))
 
 
-def _tonemap_cw(ctx, ci, ins, p):
-    x = ins["input_image"]
-    f = _aces if p["aces"] else _reinhard
-    return jnp.where(ci < 3, f(x * p["exposure"]), x)
-
-
-tonemap.cw_fn = _tonemap_cw
-
-
 # ---- convolutions -------------------------------------------------------
 
 
@@ -149,20 +137,32 @@ def _sigma_halo(p):
     return gaussian_radius(p["sigma"]) if p["sigma"] > 0 else 0
 
 
-def _mxu_ok(ctx) -> bool:
-    """bf16 storage (rgba16f) tolerates the MXU's operand truncation."""
-    return ctx.fmt == "rgba16f"
+def _stored_conv(ctx, x, w):
+    """Separable conv of a node input at its storage precision.
+
+    Under rgba16f the f32 input was just upcast from bf16 storage, so the
+    conv can read the bf16 values (lossless) and halve what it reads; its
+    result is rounded to bf16, as the node's own output is."""
+    if ctx.fmt == "rgba16f":
+        return sep_conv(x.astype(jnp.bfloat16), w, w).astype(jnp.float32)
+    return sep_conv(x, w, w)
+
+
+def _stored_blur(ctx, x, sigma):
+    if float(sigma) <= 0.0:
+        return x
+    return _stored_conv(ctx, x, gaussian_weights(sigma))
 
 
 @kernel("gaussian", halo=_sigma_halo, doc="Separable gaussian blur.")
 def gaussian(ctx, input_image, *, sigma=4.0):
-    return gaussian_blur(input_image, sigma, prefer_mxu=_mxu_ok(ctx))
+    return _stored_blur(ctx, input_image, sigma)
 
 
 # "blur" is the name the reference README configs use.
 @kernel("blur", halo=_sigma_halo)
 def blur(ctx, input_image, *, sigma=4.0):
-    return gaussian_blur(input_image, sigma, prefer_mxu=_mxu_ok(ctx))
+    return _stored_blur(ctx, input_image, sigma)
 
 
 @kernel("box_blur", halo=lambda p: max(int(p["radius"]), 0))
@@ -170,8 +170,7 @@ def box_blur(ctx, input_image, *, radius=4):
     r = max(int(radius), 0)
     if r == 0:
         return input_image
-    w = box_weights(r)
-    return sep_conv(input_image, w, w, prefer_mxu=_mxu_ok(ctx))
+    return _stored_conv(ctx, input_image, box_weights(r))
 
 
 @kernel("sharpen", halo=lambda p: 1)
@@ -184,62 +183,8 @@ def sharpen(ctx, input_image, *, amount=1.0):
 
 @kernel("unsharp", halo=_sigma_halo)
 def unsharp(ctx, input_image, *, sigma=2.0, amount=0.8):
-    blurred = gaussian_blur(input_image, sigma, prefer_mxu=_mxu_ok(ctx))
+    blurred = _stored_blur(ctx, input_image, sigma)
     return map_rgb(input_image, lambda rgb: rgb + amount * (rgb - blurred[:3]))
-
-
-# Separable-conv structure annotations: same-input conv nodes bundle into
-# one multi-output Pallas kernel (graph/program.py; the tap loop is
-# load-bound so the bundle pays the input strip loads once).
-def _gauss_plan(p):
-    if p["sigma"] <= 0:
-        return None
-    w = gaussian_weights(p["sigma"])
-    return (w, w)
-
-
-def _box_plan(p):
-    if int(p["radius"]) <= 0:
-        return None
-    w = box_weights(int(p["radius"]))
-    return (w, w)
-
-
-gaussian.conv_weights = _gauss_plan
-gaussian.conv_epilogue = lambda ctx, x, blurred, p: blurred
-gaussian.conv_epilogue_identity = True
-blur.conv_weights = _gauss_plan
-blur.conv_epilogue = lambda ctx, x, blurred, p: blurred
-blur.conv_epilogue_identity = True
-box_blur.conv_weights = _box_plan
-box_blur.conv_epilogue = lambda ctx, x, blurred, p: blurred
-box_blur.conv_epilogue_identity = True
-
-
-def _unsharp_plan(p):
-    if p["sigma"] <= 0:
-        return None
-    w = gaussian_weights(p["sigma"])
-    return (w, w)
-
-
-def _unsharp_epilogue(ctx, x, blurred, p):
-    amount = p["amount"]
-    return map_rgb(x, lambda rgb: rgb + amount * (rgb - blurred[:3]))
-
-
-unsharp.conv_weights = _unsharp_plan
-unsharp.conv_epilogue = _unsharp_epilogue
-
-# Channel-local forms (strip megakernel fusion; ci is a traced channel
-# index, so rgb-vs-alpha behavior selects with jnp.where — both sides are
-# elementwise and cheap in-kernel).
-gaussian.conv_epilogue_cw = lambda ctx, ci, x, b, p: b
-blur.conv_epilogue_cw = lambda ctx, ci, x, b, p: b
-box_blur.conv_epilogue_cw = lambda ctx, ci, x, b, p: b
-unsharp.conv_epilogue_cw = lambda ctx, ci, x, b, p: jnp.where(
-    ci < 3, x + p["amount"] * (x - b), x
-)
 
 
 @kernel("sobel", halo=lambda p: 1)
@@ -258,65 +203,10 @@ def emboss(ctx, input_image, *, amount=1.0):
     return map_rgb(input_image, lambda rgb: conv2d(rgb, taps * amount))
 
 
-# Multi-channel stencil forms (mc megakernel; tap(dy, dx) is a (4, h, w)
-# shifted view).  Tap accumulation follows ops.conv2d's ascending
-# (dy, dx) order so results track the per-node path bit-for-bit up to
-# compiler FMA contraction.
-def _sobel_mc(ctx, tap, p):
-    ys = {}
-
-    def y(dy, dx):
-        if (dy, dx) not in ys:
-            ys[(dy, dx)] = luma(tap(dy, dx))
-        return ys[(dy, dx)]
-
-    gx = (
-        y(0, 0) * -1.0 + y(0, 2) * 1.0 + y(1, 0) * -2.0
-        + y(1, 2) * 2.0 + y(2, 0) * -1.0 + y(2, 2) * 1.0
-    )
-    gy = (
-        y(0, 0) * -1.0 + y(0, 1) * -2.0 + y(0, 2) * -1.0
-        + y(2, 0) * 1.0 + y(2, 1) * 2.0 + y(2, 2) * 1.0
-    )
-    mag = jnp.sqrt(gx * gx + gy * gy) * p["amount"]
-    return map_rgb(tap(1, 1), lambda rgb: jnp.broadcast_to(mag[None], rgb.shape))
-
-
-sobel.mc_stencil_fn = _sobel_mc
-
-
-def _sharpen_mc(ctx, tap, p):
-    high = (
-        tap(0, 1) * -1.0 + tap(1, 0) * -1.0 + tap(1, 1) * 4.0
-        + tap(1, 2) * -1.0 + tap(2, 1) * -1.0
-    )
-    return map_rgb(tap(1, 1), lambda rgb: rgb + p["amount"] * high[:3])
-
-
-sharpen.mc_stencil_fn = _sharpen_mc
-
-
-def _emboss_mc(ctx, tap, p):
-    a = p["amount"]
-    out = (
-        tap(0, 0) * (-2.0 * a) + tap(0, 1) * (-1.0 * a)
-        + tap(1, 0) * (-1.0 * a) + tap(1, 1) * (1.0 * a)
-        + tap(1, 2) * (1.0 * a) + tap(2, 1) * (1.0 * a)
-        + tap(2, 2) * (2.0 * a)
-    )
-    return map_rgb(tap(1, 1), lambda rgb: out[:3])
-
-
-emboss.mc_stencil_fn = _emboss_mc
-
-
 @kernel("median3", halo=lambda p: 1)
 def median3(ctx, input_image):
-    """3x3 median via a 9-element sorting network per pixel.
-
-    Runs as one Pallas stencil pass on TPU (the 19 compare-exchanges all
-    happen in VMEM, one HBM read + write) and as fused shifted slices
-    elsewhere."""
+    """3x3 median via a 9-element sorting network per pixel (one fused
+    pass of shifted slices and 19 compare-exchanges)."""
 
     def med9(tap):
         v = [tap(dy, dx) for dy in range(3) for dx in range(3)]
@@ -330,49 +220,16 @@ def median3(ctx, input_image):
             v[i], v[j] = jnp.minimum(v[i], v[j]), jnp.maximum(v[i], v[j])
         return v[4]
 
-    med = ops.apply_stencil(input_image, 1, 1, med9, temps=10)
+    med = ops.apply_stencil(input_image, 1, 1, med9)
     return ops.map_rgb(input_image, lambda rgb: med[:3])
-
-
-def _median3_mc(ctx, tap, p):
-    v = [tap(dy, dx) for dy in range(3) for dx in range(3)]
-    pairs = [
-        (1, 2), (4, 5), (7, 8), (0, 1), (3, 4), (6, 7), (1, 2), (4, 5),
-        (7, 8), (0, 3), (5, 8), (4, 7), (3, 6), (1, 4), (2, 5), (4, 7),
-        (4, 2), (6, 4), (4, 2),
-    ]
-    for i, j in pairs:
-        v[i], v[j] = jnp.minimum(v[i], v[j]), jnp.maximum(v[i], v[j])
-    return ops.map_rgb(tap(1, 1), lambda rgb: v[4][:3])
-
-
-median3.mc_stencil_fn = _median3_mc
 
 
 @kernel("bloom", halo=lambda p: gaussian_radius(p["sigma"]))
 def bloom(ctx, input_image, *, threshold=0.7, sigma=8.0, intensity=0.6):
     y = luma(input_image)
     glow_mask = smoothstep(threshold, threshold + 0.2, y)[None]
-    glow = gaussian_blur(input_image[:3] * glow_mask, sigma,
-                         prefer_mxu=_mxu_ok(ctx))
+    glow = gaussian_blur(input_image[:3] * glow_mask, sigma)
     return map_rgb(input_image, lambda rgb: rgb + intensity * glow)
-
-
-# Strip-fusion structure for bloom: a node-internal pre-map (the threshold
-# mask, coordinate-independent) feeding the separable gaussian, and an
-# epilogue adding the glow back — the classic threshold -> blur -> add
-# graph as ONE conv stage of the mc megakernel.
-def _bloom_pre(ctx, x, p):
-    y = luma(x)
-    mask = smoothstep(p["threshold"], p["threshold"] + 0.2, y)[None]
-    return jnp.concatenate([x[:3] * mask, x[3:4]], axis=0)
-
-
-bloom.conv_weights = _gauss_plan
-bloom.conv_pre = _bloom_pre
-bloom.conv_epilogue = lambda ctx, x, blurred, p: map_rgb(
-    x, lambda rgb: rgb + p["intensity"] * blurred[:3]
-)
 
 
 # ---- multi-input ---------------------------------------------------------
@@ -381,12 +238,6 @@ bloom.conv_epilogue = lambda ctx, x, blurred, p: map_rgb(
 @kernel("mix")
 def mix(ctx, input_image, input_image2, *, factor=0.5):
     return input_image + (input_image2 - input_image) * factor
-
-
-mix.cw_fn = lambda ctx, ci, ins, p: (
-    ins["input_image"]
-    + (ins["input_image2"] - ins["input_image"]) * p["factor"]
-)
 
 
 # "blend" is the same kernel under the reference README's name.
@@ -428,55 +279,6 @@ def difference(ctx, input_image, input_image2):
     return map_rgb(input_image, lambda rgb: jnp.abs(rgb - input_image2[:3]))
 
 
-def _cw_rgb(fn):
-    """Channel-local wrapper: apply fn to rgb planes, pass alpha through."""
-
-    def cw(ctx, ci, ins, p):
-        x = ins["input_image"]
-        return jnp.where(ci < 3, fn(x, ins, p), x)
-
-    return cw
-
-
-passthrough.cw_fn = lambda ctx, ci, ins, p: ins["input_image"]
-invert.cw_fn = _cw_rgb(lambda x, ins, p: 1.0 - x)
-exposure.cw_fn = _cw_rgb(lambda x, ins, p: x * (2.0 ** p["stops"]))
-gamma.cw_fn = _cw_rgb(
-    lambda x, ins, p: jnp.maximum(x, 0.0) ** (1.0 / max(p["value"], 1e-6))
-)
-brightness_contrast.cw_fn = _cw_rgb(
-    lambda x, ins, p: (x - 0.5) * p["contrast"] + 0.5 + p["brightness"]
-)
-add.cw_fn = _cw_rgb(lambda x, ins, p: x + p["scale"] * ins["input_image2"])
-multiply.cw_fn = _cw_rgb(lambda x, ins, p: x * ins["input_image2"])
-screen.cw_fn = _cw_rgb(
-    lambda x, ins, p: 1.0 - (1.0 - x) * (1.0 - ins["input_image2"])
-)
-difference.cw_fn = _cw_rgb(lambda x, ins, p: jnp.abs(x - ins["input_image2"]))
-overlay.cw_fn = _cw_rgb(
-    lambda x, ins, p: jnp.where(
-        x < 0.5,
-        2.0 * x * ins["input_image2"],
-        1.0 - 2.0 * (1.0 - x) * (1.0 - ins["input_image2"]),
-    )
-)
-
-
-def _white_balance_cw(ctx, ci, ins, p):
-    x = ins["input_image"]
-    gain = jnp.where(
-        ci == 0,
-        1.0 + p["temperature"],
-        jnp.where(ci == 1, 1.0 + p["tint"],
-                  jnp.where(ci == 2, 1.0 - p["temperature"], 1.0)),
-    )
-    return x * gain
-
-
-white_balance.cw_fn = _white_balance_cw
-
-
-
 # ---- spatial / generative ----------------------------------------------
 
 
@@ -493,24 +295,6 @@ def _vignette_fade(ctx, strength, radius):
 def vignette(ctx, input_image, *, strength=0.5, radius=0.75):
     fade = _vignette_fade(ctx, strength, radius)
     return map_rgb(input_image, lambda rgb: rgb * fade[None])
-
-
-def _vignette_cw(ctx, ci, ins, p):
-    x = ins["input_image"]
-    fade = _vignette_fade(ctx, p["strength"], p["radius"])
-    return jnp.where(ci < 3, x * fade, x)
-
-
-def _fade_plane_cw(ctx, ci, ins, p, plane):
-    x = ins["input_image"]
-    return jnp.where(ci < 3, x * plane, x)
-
-
-vignette.cw_fn = _vignette_cw
-vignette.cw_coord_plane = lambda ctx, p: _vignette_fade(
-    ctx, p["strength"], p["radius"]
-)
-vignette.cw_plane_fn = _fade_plane_cw
 
 
 @kernel("pixelate", halo=lambda p: None)
@@ -557,27 +341,6 @@ def scanlines(ctx, input_image, *, period=3, darkness=0.35):
     period = max(int(period), 1)
     fade = jnp.where((ys % period) == 0, 1.0 - darkness, 1.0)
     return map_rgb(input_image, lambda rgb: rgb * fade[None])
-
-
-def _scanlines_cw(ctx, ci, ins, p):
-    ys, _ = ops.grid_coords(ctx)
-    period = max(int(p["period"]), 1)
-    fade = jnp.where((ys % period) == 0, 1.0 - p["darkness"], 1.0)
-    x = ins["input_image"]
-    return jnp.where(ci < 3, x * fade, x)
-
-
-def _scanlines_plane(ctx, p):
-    ys, _ = ops.grid_coords(ctx)
-    period = max(int(p["period"]), 1)
-    return jnp.where((ys % period) == 0, 1.0 - p["darkness"], 1.0).astype(
-        jnp.float32
-    )
-
-
-scanlines.cw_fn = _scanlines_cw
-scanlines.cw_coord_plane = _scanlines_plane
-scanlines.cw_plane_fn = _fade_plane_cw
 
 
 @kernel("wave", halo=lambda p: None)
@@ -640,14 +403,6 @@ def posterize(ctx, input_image, *, levels=6):
     )
 
 
-posterize.cw_fn = _cw_rgb(
-    lambda x, ins, p: jnp.round(
-        jnp.clip(x, 0.0, 1.0) * (max(int(p["levels"]), 2) - 1)
-    )
-    / (max(int(p["levels"]), 2) - 1)
-)
-
-
 @kernel("dither")
 def dither(ctx, input_image, *, levels=2):
     """Ordered dithering with a 4x4 Bayer matrix."""
@@ -669,26 +424,6 @@ def dither(ctx, input_image, *, levels=2):
     return map_rgb(input_image, f)
 
 
-def _dither_cw(ctx, ci, ins, p):
-    # Closed-form 4x4 Bayer (no gather — Pallas-friendly): M4[y][x] =
-    # 4*M2(y&1, x&1) + M2(y>>1&1, x>>1&1) with M2(a,b) = 2b + a(3-4b);
-    # exactly the matrix the full kernel looks up.
-    n = max(int(p["levels"]), 2)
-    ys, xs = ops.grid_coords(ctx)
-
-    def m2(a, b):
-        return 2 * b + a * (3 - 4 * b)
-
-    idx = 4 * m2(ys % 2, xs % 2) + m2((ys // 2) % 2, (xs // 2) % 2)
-    thresh = (idx.astype(jnp.float32) + 0.5) / 16.0
-    x = ins["input_image"]
-    scaled = jnp.clip(x, 0.0, 1.0) * (n - 1)
-    return jnp.where(ci < 3, jnp.floor(scaled + thresh) / (n - 1), x)
-
-
-dither.cw_fn = _dither_cw
-
-
 @kernel("kuwahara", halo=lambda p: max(int(p["radius"]), 1))
 def kuwahara(ctx, input_image, *, radius=4):
     """Kuwahara filter: per pixel, the mean of the least-variant of the four
@@ -702,14 +437,14 @@ def kuwahara(ctx, input_image, *, radius=4):
 
     y = luma(input_image)[None]
     # One conv per quadrant over a channel-stacked (6, H, W) field
-    # (rgba + luma + luma^2): the Pallas kernels grid over channels, so
-    # stacking turns 12 kernel launches into 4 with identical math.
+    # (rgba + luma + luma^2): sep_conv treats leading dims as planes, so
+    # stacking turns 12 convs into 4 with identical math.
     stacked = jnp.concatenate([input_image, y, y * y], axis=0)
     best_mean = None
     best_var = None
     for wy in (lag, lead):
         for wx in (lag, lead):
-            s = sep_conv(stacked, wy, wx, prefer_mxu=_mxu_ok(ctx))
+            s = sep_conv(stacked, wy, wx)
             m, my, my2 = s[:4], s[4:5], s[5:6]
             var = my2 - my * my
             if best_var is None:
@@ -759,7 +494,9 @@ def hue_saturation(ctx, input_image, *, hue=0.0, saturation=1.0, lightness=0.0):
     m = jnp.asarray(_hue_rotate_matrix(hue))
 
     def f(rgb):
-        out = jnp.einsum("ij,jhw->ihw", m, rgb)
+        # A 3x3 f32 product: HIGHEST keeps it out of TF32 on the GPU.
+        out = jnp.einsum("ij,jhw->ihw", m, rgb,
+                         precision=jax.lax.Precision.HIGHEST)
         y = (out[0] * 0.2126 + out[1] * 0.7152 + out[2] * 0.0722)[None]
         out = y + (out - y) * saturation
         return out + lightness
@@ -779,16 +516,6 @@ def levels(ctx, input_image, *, in_black=0.0, in_white=1.0, gamma=1.0,
         return out_black + t * (float(out_white) - float(out_black))
 
     return map_rgb(input_image, f)
-
-
-def _levels_cw(x, ins, p):
-    span = max(float(p["in_white"]) - float(p["in_black"]), 1e-6)
-    t = jnp.clip((x - p["in_black"]) / span, 0.0, 1.0)
-    t = t ** (1.0 / max(float(p["gamma"]), 1e-6))
-    return p["out_black"] + t * (float(p["out_white"]) - float(p["out_black"]))
-
-
-levels.cw_fn = _cw_rgb(_levels_cw)
 
 
 # ---- edge-preserving / stylized -----------------------------------------
@@ -834,29 +561,17 @@ def bilateral(ctx, input_image, *, radius=3, sigma_space=2.0, sigma_range=0.15):
         return acc[:3] / acc[3]
 
     stacked = jnp.concatenate([x[:3], y0_full[None]], axis=0)
-    rgb = None
-    if ops._use_pallas():
-        from . import pallas_ops
 
-        rgb = pallas_ops.stencil_reduce_mc(
-                stacked, r, r, taps_list, tap_fn, final_fn,
-                out_channels=3, acc_channels=4,
-            )
-    if rgb is None:
-        # Portable path: the same taps over shifted slices of one padded
-        # array; XLA fuses the chain.
-        h, w = x.shape[AXIS_H], x.shape[AXIS_W]
-        sp = ops.pad_edge(stacked, r, r)
-
-        def tap(dy, dx):
-            return jax.lax.dynamic_slice(sp, (0, dy, dx), (4, h, w))
-
+    def reduce_taps(tap):
         center = tap(r, r)
         acc = None
         for dy, dx in taps_list:
             t = tap_fn(tap, center, dy, dx)
             acc = t if acc is None else acc + t
-        rgb = final_fn(acc)
+        return final_fn(acc)
+
+    # The taps are shifted slices of one padded array; XLA fuses the chain.
+    rgb = ops.apply_stencil(stacked, r, r, reduce_taps)
     return ops.with_alpha(rgb, x[3])
 
 

@@ -2,23 +2,23 @@
 
 All functions operate on planar ``f32[4, H, W]`` (or ``f32[C, H, W]``)
 arrays.  Convolutions are written as static unrolled shifted-adds over
-padded arrays: XLA fuses the tap loop into a single VPU pass over memory,
+padded arrays: XLA fuses the pad and the tap loop into one loop fusion,
 which beats a general conv lowering for the small 1-D kernels typical of
-image filters.  Border policy is clamp-to-edge throughout (the visual
-convention of the reference's demo shaders).
+image filters.  Border policy is clamp-to-edge unless a caller asks for
+zeros (the visual convention of the reference's demo shaders).
+
+The one hand-written kernel is the fused separable convolution for
+Hopper GPUs (``cuda_sepconv.py``); ``sep_conv`` decides when it runs.
 """
 
 from __future__ import annotations
 
+import contextvars
 import math
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-
-AXIS_H = 1
-AXIS_W = 2
-
 
 def pad_edge(x: jnp.ndarray, rh: int, rw: int) -> jnp.ndarray:
     """Clamp-to-edge padding of the spatial dims of (C, H, W)."""
@@ -27,27 +27,26 @@ def pad_edge(x: jnp.ndarray, rh: int, rw: int) -> jnp.ndarray:
     return jnp.pad(x, ((0, 0), (rh, rh), (rw, rw)), mode="edge")
 
 
-def conv1d(x: jnp.ndarray, weights: np.ndarray, axis: int) -> jnp.ndarray:
-    """1-D correlation along a spatial axis with clamp-to-edge borders.
+def _pad_mode(mode: str) -> str:
+    if mode not in ("edge", "zero"):
+        raise ValueError(f"border mode must be 'edge' or 'zero', got {mode!r}")
+    return "edge" if mode == "edge" else "constant"
+
+
+def conv1d(x: jnp.ndarray, weights: np.ndarray, axis: int,
+           mode: str = "edge") -> jnp.ndarray:
+    """1-D correlation along ``axis`` with clamp-to-edge (or zero) borders.
 
     ``weights`` must be a static numpy array of odd length; taps unroll at
-    trace time.  On TPU backends, 3-D (C, H, W) images route to the Pallas
-    kernels (pallas_ops.py) that accumulate all taps in VMEM; elsewhere (or
-    when REFORGE_NO_PALLAS is set) the portable jnp shifted-add path runs.
+    trace time.
     """
     weights = np.asarray(weights, dtype=np.float32)
     r = (len(weights) - 1) // 2
     if r == 0:
         return x * float(weights[0])
-    if x.ndim == 3 and axis in (AXIS_H, AXIS_W) and _use_pallas():
-        from . import pallas_ops
-
-        if axis == AXIS_H:
-            return pallas_ops.conv1d_h(x, weights)
-        return pallas_ops.conv1d_w(x, weights)
     pad = [(0, 0)] * x.ndim
     pad[axis] = (r, r)
-    xp = jnp.pad(x, pad, mode="edge")
+    xp = jnp.pad(x, pad, mode=_pad_mode(mode))
     size = x.shape[axis]
     acc = None
     for i, w in enumerate(weights):
@@ -58,139 +57,90 @@ def conv1d(x: jnp.ndarray, weights: np.ndarray, axis: int) -> jnp.ndarray:
     return acc if acc is not None else jnp.zeros_like(x)
 
 
-_pallas_suppressed = 0
+# ---- the custom-kernel capability ------------------------------------------
+
+_plain_only = contextvars.ContextVar("reforge_plain_kernels", default=False)
 
 
-class no_pallas:
-    """Trace-scoped Pallas opt-out (re-entrant context manager).
+class plain_kernels:
+    """Trace only the plain jnp kernels inside this block.
 
-    Multi-device program wrappers trace kernels under this: a pallas_call
-    cannot take a vmap batch dimension (ANY-memory operands require a
-    trivial index_map) and GSPMD cannot partition the custom call, so
-    vmapped/auto-sharded programs must trace the portable jnp formulations
-    instead.  The flag is consulted at trace time, so wrapping the traced
-    callable is sufficient."""
+    Used where a custom call cannot go (GSPMD cannot partition one,
+    parallel/spatial.py) and for the reference that the CUDA kernels are
+    checked against.  The choice is made while tracing, so a program
+    traced inside the block keeps the plain kernels: build a separate
+    program for each side.  Thread- and context-local."""
 
     def __enter__(self):
-        global _pallas_suppressed
-        _pallas_suppressed += 1
+        self._token = _plain_only.set(True)
         return self
 
     def __exit__(self, *exc):
-        global _pallas_suppressed
-        _pallas_suppressed -= 1
+        _plain_only.reset(self._token)
         return False
 
 
-def _use_pallas() -> bool:
-    import os
-
-    if _pallas_suppressed or os.environ.get("REFORGE_NO_PALLAS"):
-        return False
-    from . import pallas_ops
-
-    return pallas_ops.pallas_available()
+def custom_kernels_ok() -> bool:
+    """Whether the hand-written CUDA kernels may be traced here: the
+    default backend is a GPU and no ``plain_kernels`` block is active.
+    Per-device traces (shard_map bodies, pipeline stages, batch maps) may
+    use them."""
+    return not _plain_only.get() and jax.default_backend() == "gpu"
 
 
-# Combined (H + W) tap count above which the f32-exact bf16x3 MXU conv
-# beats the VPU fused kernel (whose cost scales per tap); measured on v5e
-# at 4K (BENCH.md).
-X3_MIN_TAPS = 56
+SEPCONV_KERNEL_DTYPES = (jnp.float32, jnp.bfloat16)
 
-# Frame width at which EXTENT-CARRYING conv stages (a conv whose output
-# feeds another conv/stencil with a halo) stop paying inside the mc
-# megakernel vs per-node execution; zero-extent convs fuse at any width.
-# Measured on v5e (graph/program.py::_plan_strip_mc gate comment).
-MC_CONV_MAX_WIDTH = 2560
 
-# Frame width at which HEAVY f32-storage convs (>= X3_MIN_TAPS combined
-# taps) start winning as in-kernel bf16x3 MXU band-matmul stages vs
-# per-node's standalone x3 kernel: the 6-products-+-Dekker-splits cost
-# is width-independent per pixel, but the mc strip grid's fixed costs
-# only amortize at wide frames.  Measured v5e blur2-s8: 1920 0.80x,
-# 2560 1.03x, 3840 1.28x.  Deliberately a separate constant from
-# MC_CONV_MAX_WIDTH (benchmarks force-lift that gate to build mc plans;
-# x3 eligibility must not move with it).
-MC_MXU_F32_MIN_WIDTH = 2560
+def use_sepconv_kernel(x: jnp.ndarray, rh: int, rw: int) -> bool:
+    """Whether ``sep_conv`` runs the fused CUDA kernel for this call.
+
+    Only where custom kernels may be traced, for f32 or bf16 planes, for a
+    real 2-D or 1-D conv, and for radii whose halo-extended tiles fit the
+    kernel's shared-memory budget (``cuda_sepconv.fits``).  Larger radii
+    run the plain path.  This is a choice made while tracing, not a
+    fallback on error."""
+    from . import cuda_sepconv
+
+    return (
+        custom_kernels_ok()
+        and x.ndim >= 2
+        and x.dtype in SEPCONV_KERNEL_DTYPES
+        and (rh > 0 or rw > 0)
+        and cuda_sepconv.fits(rh, rw, x.dtype.itemsize)
+    )
 
 
 def sep_conv(x: jnp.ndarray, wh: np.ndarray, ww: np.ndarray,
-             prefer_mxu: bool = False) -> jnp.ndarray:
-    """Separable 2-D convolution: 1-D pass along H then along W.
+             mode: str = "edge") -> jnp.ndarray:
+    """Separable 2-D correlation: a 1-D pass along H, then along W.
 
-    On TPU, widths whose working set fits VMEM use the single fused
-    Pallas kernel (one HBM read + one write for both directions);
-    otherwise two per-direction Pallas kernels (or the jnp fallback off
-    TPU).  ``prefer_mxu`` routes to the banded-matmul MXU variant, whose
-    default-precision f32 matmul truncates operands to bf16 — callers set
-    it when the surrounding storage format is bf16 anyway (rgba16f), where
-    the truncation is below storage precision."""
-    if x.ndim == 3 and _use_pallas():
-        import os
+    The last two dims are (H, W); leading dims are planes.  Sums are f32
+    whatever the input dtype, and the result has the input's dtype.  See
+    ``use_sepconv_kernel`` for when the fused CUDA kernel runs; otherwise
+    the plain jnp passes do."""
+    wh = np.asarray(wh, np.float32)
+    ww = np.asarray(ww, np.float32)
+    _pad_mode(mode)
+    if use_sepconv_kernel(x, (len(wh) - 1) // 2, (len(ww) - 1) // 2):
+        from . import cuda_sepconv
 
-        from . import pallas_ops
-
-        wh_arr = np.asarray(wh, np.float32)
-        ww_arr = np.asarray(ww, np.float32)
-        rh, rw = (len(wh_arr) - 1) // 2, (len(ww_arr) - 1) // 2
-        if rh > 0 and rw > 0:
-            fast = os.environ.get("REFORGE_CONV_PRECISION") == "fast"
-            if (x.dtype == jnp.bfloat16 or prefer_mxu or fast) and rw <= 128:
-                # Under prefer_mxu the caller's storage is bf16 (the f32
-                # input was just upcast from it), so running the kernel on
-                # bf16 strips is lossless and halves strip DMA; the output
-                # returns in the caller's dtype.
-                xk = x
-                if prefer_mxu and x.dtype == jnp.float32:
-                    xk = x.astype(jnp.bfloat16)
-                tile_h = pallas_ops.mxu_tile_h(x.shape[2], rh, rw,
-                                               xk.dtype.itemsize)
-                if tile_h is not None:
-                    out = pallas_ops.sep_conv_fused_mxu(
-                        xk, wh_arr, ww_arr, tile_h=tile_h
-                    )
-                    return out.astype(x.dtype)
-            if (
-                x.dtype == jnp.float32
-                and len(wh_arr) + len(ww_arr) >= X3_MIN_TAPS
-            ):
-                # Large radii: the bf16x3 split MXU kernel's cost is nearly
-                # tap-count-independent (banded matmuls), while the VPU
-                # kernel pays ~per-tap; crossover measured at ~50 combined
-                # taps on v5e (BENCH.md).  Full f32 accuracy (6-product
-                # Dekker split).
-                tile_h = pallas_ops.mxu_x3_tile_h(x.shape[2], rh, rw)
-                if tile_h is not None:
-                    return pallas_ops.sep_conv_fused_mxu_x3(
-                        x, wh_arr, ww_arr, tile_h=tile_h
-                    )
-            tile_h = pallas_ops.fused_tile_h(x.shape[2], rh, rw, h=x.shape[1])
-            if tile_h is not None:
-                return pallas_ops.sep_conv_fused(x, wh_arr, ww_arr, tile_h=tile_h)
-    return conv1d(conv1d(x, wh, AXIS_H), ww, AXIS_W)
+        return cuda_sepconv.sep_conv(x, wh, ww, mode)
+    xf = x.astype(jnp.float32) if x.dtype == jnp.bfloat16 else x
+    out = conv1d(conv1d(xf, wh, x.ndim - 2, mode), ww, x.ndim - 1, mode)
+    return out.astype(x.dtype)
 
 
-def apply_stencil(x: jnp.ndarray, rh: int, rw: int, fn, temps: int = 4,
+def apply_stencil(x: jnp.ndarray, rh: int, rw: int, fn,
                   mode: str = "edge") -> jnp.ndarray:
-    """Evaluate a per-pixel neighborhood function over (C, H, W).
+    """Evaluate a per-pixel neighborhood function over (..., H, W).
 
     ``fn(tap)`` receives ``tap(dy, dx)`` returning the neighbor shifted by
     ``(dy - rh, dx - rw)`` and must be elementwise in the array it returns
-    (same spatial shape as a tap).  On TPU the whole function runs as one
-    Pallas pass per channel — a single HBM read + write regardless of how
-    many taps or compare-exchanges fn uses; elsewhere taps become shifted
-    slices of one padded array and XLA fuses.  ``temps`` sizes the VMEM
-    model for fn's live intermediates (e.g. 9 for a median-of-9 network)."""
-    if x.ndim == 3 and (rh or rw) and _use_pallas():
-        from . import pallas_ops
-
-        out = pallas_ops.stencil_apply(x, rh, rw, fn, mode=mode, temps=temps)
-        if out is not None:
-            return out
-    pad_mode = "edge" if mode == "edge" else "constant"
+    (same spatial shape as a tap).  Taps are shifted slices of one padded
+    array; XLA fuses the pad, the slices and fn into one pass."""
     pad = [(0, 0)] * (x.ndim - 2) + [(rh, rh), (rw, rw)]
-    xp = jnp.pad(x, pad, mode=pad_mode)
-    h, w = x.shape[AXIS_H], x.shape[AXIS_W]
+    xp = jnp.pad(x, pad, mode=_pad_mode(mode))
+    h, w = x.shape[-2], x.shape[-1]
 
     def tap(dy: int, dx: int):
         start = (0,) * (x.ndim - 2) + (dy, dx)
@@ -201,47 +151,24 @@ def apply_stencil(x: jnp.ndarray, rh: int, rw: int, fn, temps: int = 4,
 
 
 def conv2d(x: jnp.ndarray, taps: np.ndarray) -> jnp.ndarray:
-    """Small dense 2-D correlation (static odd-sized kernel, edge clamp).
-
-    On TPU, 3-D images run as one Pallas stencil pass (single HBM
-    read + write); elsewhere the jnp shifted-add path fuses under XLA."""
+    """Small dense 2-D correlation (static odd-sized kernel, edge clamp),
+    summed in ascending (dy, dx) order."""
     taps = np.asarray(taps, dtype=np.float32)
     rh, rw = taps.shape[0] // 2, taps.shape[1] // 2
     if rh == 0 and rw == 0:
         return x * float(taps[0, 0])
 
     def weighted_sum(tap):
-        # Striped accumulation (tap i -> stripe i mod 8) for long chains:
-        # the in-order VPU stalls on a single serial acc-add chain;
-        # independent partials keep the pipeline full (same fix as
-        # pallas_ops._blocked_taps, measured 2.7x).  Short chains (<= 2
-        # stripes' worth) keep the ascending order: no latency to hide,
-        # and cancellation-built kernels (laplacian sharpen) stay at
-        # their established rounding.
-        terms = []
+        acc = None
         for dy in range(taps.shape[0]):
             for dx in range(taps.shape[1]):
                 wgt = float(taps[dy, dx])
                 if wgt != 0.0:
-                    terms.append((dy, dx, wgt))
-        if not terms:
-            return tap(rh, rw) * 0.0
-        n_stripes = 8 if len(terms) > 16 else 1
-        parts: list = [None] * n_stripes
-        for i, (dy, dx, wgt) in enumerate(terms):
-            t = tap(dy, dx) * wgt
-            j = i % n_stripes
-            parts[j] = t if parts[j] is None else parts[j] + t
-        parts = [p for p in parts if p is not None]
-        while len(parts) > 1:
-            merged = [parts[k] + parts[k + 1]
-                      for k in range(0, len(parts) - 1, 2)]
-            if len(parts) % 2:
-                merged.append(parts[-1])
-            parts = merged
-        return parts[0]
+                    t = tap(dy, dx) * wgt
+                    acc = t if acc is None else acc + t
+        return acc if acc is not None else tap(rh, rw) * 0.0
 
-    return apply_stencil(x, rh, rw, weighted_sum, temps=3)
+    return apply_stencil(x, rh, rw, weighted_sum)
 
 
 def gaussian_weights(sigma: float, radius: int | None = None) -> np.ndarray:
@@ -261,12 +188,11 @@ def gaussian_radius(sigma: float) -> int:
     return int(min(MAX_GAUSSIAN_RADIUS, max(1, math.ceil(3.0 * float(sigma)))))
 
 
-def gaussian_blur(x: jnp.ndarray, sigma: float,
-                  prefer_mxu: bool = False) -> jnp.ndarray:
+def gaussian_blur(x: jnp.ndarray, sigma: float) -> jnp.ndarray:
     if float(sigma) <= 0.0:
         return x
     w = gaussian_weights(sigma)
-    return sep_conv(x, w, w, prefer_mxu=prefer_mxu)
+    return sep_conv(x, w, w)
 
 
 def box_weights(radius: int) -> np.ndarray:
@@ -312,8 +238,6 @@ def grid_coords(ctx) -> tuple[jnp.ndarray, jnp.ndarray]:
     off = ctx.row_offset
     if not (isinstance(off, int) and off == 0):
         ys = ys + jnp.asarray(off, jnp.int32)
-    if ctx.col_offset != 0:
-        xs = xs + jnp.int32(ctx.col_offset)
     return ys, xs
 
 

@@ -1,8 +1,9 @@
 """Parallel execution: device meshes and spatial sharding.
 
 The reference has no multi-device support (SURVEY.md §2); this package is
-the TPU-native scale-out story: row-sharding over an ICI mesh with
-XLA-inserted or explicit halo-exchange collectives.
+this program's scale-out: row-sharding over a device mesh with
+XLA-inserted or explicit halo-exchange collectives, frame batches, and
+layer pipelines.
 """
 
 from .batch import BATCH_AXIS, BatchProgram, make_batch_mesh

@@ -6,16 +6,10 @@ single-frame program per local frame — zero communication, linear
 scaling.  Used by the CLI's batch mode (glob inputs) and available as a
 library API for offline pipelines.
 
-The per-device execution deliberately is NOT a vmap: ``pallas_call``
-rejects a vmap batch dimension, and wrapping the forward in
-``ops.no_pallas`` would ship the ~4x slower portable jnp kernels on TPU
-(BENCH.md microbench table) on exactly the throughput-oriented path.
-Instead ``shard_map`` gives every device a concrete single-device view of
-its local frames, and a ``lax.map`` over them runs the real single-frame
-forward — Pallas strip megakernels intact — the same trick the halo
-executor uses (halo.py).  The frames of a local shard execute
-sequentially on their device, which is what a single TPU core would do
-with them anyway.
+``shard_map`` gives every device its local frames, and a ``lax.map`` over
+them runs the ordinary single-frame forward, the same per-device program
+the halo executor runs (halo.py).  The frames of a local shard execute in
+sequence on their device.
 """
 
 from __future__ import annotations
@@ -51,8 +45,7 @@ class BatchProgram:
         self.mesh = mesh
 
         def _local(batch, times):
-            # One device's local frames, sequentially; Pallas kernels
-            # apply directly to each concrete single-frame view.
+            # One device's local frames, in sequence.
             return jax.lax.map(
                 lambda bt: program._forward(bt[0], bt[1]), (batch, times)
             )
@@ -60,10 +53,8 @@ class BatchProgram:
         if mesh is not None:
             from jax import shard_map
 
-            # check_vma=False: pallas_call out_shapes carry no varying-
-            # mesh-axes annotation, so the vma checker would reject the
-            # (legal) per-device Pallas kernels inside the shard_map body
-            # (same as parallel/halo.py).
+            # check_vma=False: custom-call (FFI) results carry no varying-
+            # mesh-axes annotation (same as parallel/halo.py).
             fwd = shard_map(
                 _local,
                 mesh=mesh,

@@ -34,7 +34,7 @@ except ImportError:  # older jax
 from jax.sharding import NamedSharding, PartitionSpec as P
 
 from ..config import FILE_INPUT, FINAL_OUTPUT
-from ..kernels.base import KernelContext, quantize_rgba8
+from ..kernels.base import KernelContext
 from ..graph.program import GraphProgram
 from ..utils import warnln
 from .mesh import Mesh, ROW_AXIS
@@ -141,14 +141,13 @@ class HaloShardedProgram:
                 f"image height {h} is not divisible by the {self.n}-device mesh"
             )
         self.h_local = h // self.n
-        self._mesh_is_tpu = mesh.devices.flat[0].platform == "tpu"
 
         self._compiled = None
         rows = P(None, ROW_AXIS, None)
         scalar = P()
-        # check_vma=False: pallas_call out_shapes carry no varying-mesh-axes
-        # annotation, so the vma checker would reject the (legal) per-device
-        # Pallas kernels inside the shard_map body.
+        # check_vma=False: custom-call (FFI) results carry no varying-mesh-
+        # axes annotation, so the vma checker would reject the (legal)
+        # per-device CUDA kernel inside the shard_map body.
         self._fused = jax.jit(
             shard_map(
                 self._local_forward,
@@ -159,148 +158,9 @@ class HaloShardedProgram:
             )
         )
 
-    # Runs per device on the local slab.
+    # Runs per device on the local slab.  shard_map bodies are per-device
+    # programs, so the single-device CUDA kernel applies as it is.
     def _local_forward(self, file_input_local: jnp.ndarray, t: jnp.ndarray):
-        # shard_map bodies are per-device programs over local slabs, so the
-        # single-device Pallas kernels apply directly on TPU meshes — the
-        # scale path keeps the fast kernels instead of shipping a ~4x
-        # kernel regression.  CPU meshes (the test environment) trace the
-        # portable jnp kernels (ops.no_pallas); GSPMD/vmap wrappers still
-        # must (see parallel/spatial.py, parallel/batch.py).
-        if self._mesh_is_tpu:
-            return self._local_forward_impl(file_input_local, t)
-        from ..kernels import ops as _ops
-
-        with _ops.no_pallas():
-            return self._local_forward_impl(file_input_local, t)
-
-    def _strip_local(self, x_local: jnp.ndarray, t, idx):
-        """Whole-graph strip fusion per shard: ONE halo exchange of the
-        input (max conv radius), then the single-device megakernel on
-        the halo-extended slab, cropping the synthetic border.
-
-        The plan's convs all read FILE_INPUT with edge borders, so one
-        exchange covers every node; the megakernel's own edge padding
-        only influences the 2*RH border rows that are cropped away.  The
-        epilogue's global row coordinate rides in via row0_base.  Falls
-        through (None) on CPU meshes or when the program's strip gates
-        say no — the per-node exchange path below is always correct."""
-        prog = self.program
-        import os as _os
-
-        force_interp = _os.environ.get("REFORGE_PALLAS_INTERPRET") == "1"
-        if not (self._mesh_is_tpu or force_interp) or prog._strip_plan is None:
-            return None
-        if prog._strip_plan[0] == "segments":
-            # Hybrid plans interleave fused segments with per-node nodes;
-            # the slab executor needs ONE kernel covering the whole graph.
-            # The per-node exchange path below handles these graphs.
-            return None
-        if prog._strip_plan[0] == "mc":
-            # The mc plan records the whole graph's accumulated input
-            # halo; one exchange of that many rows bounds every stage's
-            # boundary error inside the cropped border.
-            RH = prog._strip_plan[1]["input_halo"]
-            if prog._strip_plan[1].get("edge_hazard"):
-                # A conv/stencil of an INTERMEDIATE diverges at the true
-                # image border on a replica-extended slab (the unsharded
-                # kernel clamps the intermediate at the edge; computing
-                # through replicas yields different values).  Edge-aware
-                # slab variants keep the megakernel exact.
-                return self._strip_local_hazard(
-                    x_local, t, idx, RH
-                )
-        else:
-            _tag, conv_items, _ = prog._strip_plan
-            RH = max((len(wh) - 1) // 2 for _, (wh, ww) in conv_items)
-        if RH == 0 or RH >= self.program.height:
-            # RH == 0 (H-only radius-free plans): halo_pad's r=0 slices
-            # (x[:, -0:, :] == the whole slab!) and the RH:-RH crop both
-            # degenerate; the per-node path handles it.  (RH > h_local is
-            # fine: halo_pad chains neighbor hops.)
-            return None
-        pad_mode = (
-            prog._strip_plan[1].get("mode", "edge")
-            if prog._strip_plan[0] == "mc" else "edge"
-        )
-        ext = halo_pad(x_local, RH, self.n, idx, mode=pad_mode)
-        out_ext = prog._strip_fused_forward(
-            ext, t, row0_base=idx * self.h_local - RH
-        )
-        if out_ext is None:
-            return None
-        return out_ext[:, RH:-RH, :]
-
-    def _strip_local_hazard(self, x_local: jnp.ndarray, t, idx, RH: int):
-        """Megakernel-per-shard for mc plans whose stages read
-        INTERMEDIATES with a halo (plan["edge_hazard"]).
-
-        The uniform replica-extended slab is exact for stages reading the
-        file input (replicated rows ARE the clamp semantics) but not for
-        convs of intermediates at the true image border.  Three slab
-        variants keep it exact everywhere: the first/last shard run the
-        kernel on a slab whose outer side ends at the TRUE image edge —
-        the kernel's own in-VMEM edge replication then clamps the
-        intermediates exactly like the unsharded program — and interior
-        shards compute through genuine neighbor data on both sides.
-        ``lax.switch`` selects the variant per device inside the single
-        SPMD program.  Falls through (None -> per-node exchange path)
-        when any variant's strip geometry fails the tile gates."""
-        from ..kernels import pallas_ops
-
-        prog = self.program
-        h_local, n = self.h_local, self.n
-        plan = prog._strip_plan[1]
-        if RH == 0 or RH >= h_local or n == 1:
-            # n == 1: the raw slab IS the whole image; run the kernel
-            # directly (both edges true).
-            if n == 1:
-                return prog._strip_fused_forward(x_local, t, row0_base=0)
-            return None
-
-        def tile_ok(hh: int) -> bool:
-            return pallas_ops.mc_strip_tile_h(
-                hh, prog.width, plan["rh_in"], plan["ew_in"],
-                max(plan["n_bufs"], 1),
-                itemsize=x_local.dtype.itemsize,
-                min_tile=2 * plan.get("eh_max", 0),
-                mxu_t_max=plan.get("mxu_t_max", 0),
-            ) is not None
-
-        R = next(
-            (
-                c for c in range(RH, min(RH + 33, h_local))
-                if tile_ok(h_local + 2 * c) and tile_ok(h_local + c)
-            ),
-            None,
-        )
-        if R is None:
-            return None
-        ext = halo_pad(x_local, R, n, idx, mode="edge")
-        row0 = idx * h_local
-
-        def top(_):
-            out = prog._strip_fused_forward(
-                ext[:, R:, :], t, row0_base=row0
-            )
-            return out[:, :h_local, :]
-
-        def mid(_):
-            out = prog._strip_fused_forward(ext, t, row0_base=row0 - R)
-            return out[:, R:-R, :]
-
-        def bot(_):
-            out = prog._strip_fused_forward(
-                ext[:, : h_local + R, :], t, row0_base=row0 - R
-            )
-            return out[:, R:, :]
-
-        # The tile gates were proven for both extended heights above, so
-        # none of the branches can return None.
-        sel = jnp.where(idx == 0, 0, jnp.where(idx == self.n - 1, 2, 1))
-        return jax.lax.switch(sel, [top, mid, bot], 0)
-
-    def _local_forward_impl(self, file_input_local: jnp.ndarray, t: jnp.ndarray):
         prog = self.program
         n, h_local = self.n, self.h_local
         idx = jax.lax.axis_index(ROW_AXIS)
@@ -309,9 +169,6 @@ class HaloShardedProgram:
         resources: dict[str, Any] = {
             FILE_INPUT: file_input_local.astype(prog.storage_dtype)
         }
-        strip = self._strip_local(resources[FILE_INPUT], t, idx)
-        if strip is not None:
-            return strip
 
         def ctx_for(local_height: int, row0) -> KernelContext:
             return KernelContext(

@@ -2,10 +2,12 @@
 
 The reference is strictly single-device (one vk::Queue on one physical
 device — reference: src/vulkan/core.rs:110-123); its only concurrency is
-frames-in-flight and per-pixel parallelism.  The TPU build scales the
-spatial axis across the ICI mesh instead: image rows are sharded over a
-1-D mesh and XLA emits the neighbor collectives that convolution halos
-need (the image-domain analog of ring-attention's neighbor KV exchange).
+frames-in-flight and per-pixel parallelism.  This program also scales the
+spatial axis across devices: image rows are sharded over a 1-D mesh and
+the neighbor collectives that convolution halos need are exchanged
+between devices (the image-domain analog of ring-attention's neighbor KV
+exchange).  Every GPU of a host reaches every other at the same rate, so
+the mesh is the plain device list.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ def make_row_mesh(n_devices: Optional[int] = None) -> Mesh:
     if n > len(devices):
         raise ValueError(f"requested {n} devices, have {len(devices)}")
     return Mesh(devices[:n], axis_names=(ROW_AXIS,))
+
 
 def row_sharding(mesh: Mesh) -> NamedSharding:
     """Shard (4, H, W) images by H across the mesh."""

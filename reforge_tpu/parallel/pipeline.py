@@ -2,7 +2,7 @@
 
 The third parallelism axis (after spatial row-sharding and data-parallel
 batching): topological layers are partitioned into S stages, one device
-per stage, with activations moving stage-to-stage over ICI
+per stage, with activations moving stage-to-stage between devices
 (``jax.device_put``).  Because JAX dispatch is asynchronous, a host loop
 that keeps several frames in flight naturally fills the pipeline: device
 s computes frame i while device s-1 computes frame i+1 — the multi-device
@@ -161,14 +161,8 @@ class PipelineStagedProgram:
         prog = self.program
         group = self.stage_layers[s]
         out_names = list(self._stage_outputs[s])
-        # Each stage is an ordinary single-device jit, so the Pallas
-        # kernels apply directly on TPU stage devices; CPU stages (the
-        # test environment) trace the portable jnp kernels.
-        stage_is_tpu = self.devices[s].platform == "tpu"
 
         def stage(inputs: dict, t):
-            from ..kernels import ops as _ops
-
             ctx = KernelContext(
                 width=prog.width, height=prog.height, time=t, fmt=prog.fmt
             )
@@ -178,17 +172,9 @@ class PipelineStagedProgram:
                 resources[FILE_INPUT] = resources[FILE_INPUT].astype(
                     prog.storage_dtype
                 )
-
-            def run_all():
-                for layer in group:
-                    for node in layer:
-                        resources.update(prog._run_node(node, ctx, resources))
-
-            if stage_is_tpu:
-                run_all()
-            else:
-                with _ops.no_pallas():
-                    run_all()
+            for layer in group:
+                for node in layer:
+                    resources.update(prog._run_node(node, ctx, resources))
             return {name: resources[name] for name in out_names}
 
         return stage

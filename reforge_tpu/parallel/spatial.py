@@ -8,11 +8,9 @@ flags):
      function with row-sharded in/out shardings.  XLA partitions every op
      and inserts halo exchanges (collective-permutes of boundary rows) for
      the shifted-slice convolutions automatically.  Zero extra code per
-     kernel — but GSPMD cannot partition a ``pallas_call``, so this path
-     traces the portable jnp kernels (~4× slower on TPU than the Pallas
-     megakernel).  On TPU hardware prefer strategy 2 (``--shard``'s halo
-     path), which keeps the Pallas kernels; ``ShardedProgram`` warns when
-     it drops them (see docs/sharding.md).
+     kernel — but GSPMD cannot partition a custom call, so this path
+     traces the plain jnp kernels, never the CUDA separable conv
+     (``ops.plain_kernels``).
 
   2. ``shard_map`` + explicit ``jax.lax.ppermute`` halo exchange
      (halo.py) — the hand-scheduled analog of ring attention's neighbor
@@ -34,33 +32,19 @@ from ..graph.program import GraphProgram
 from .mesh import Mesh, replicated, row_sharding
 
 
-def _mesh_is_tpu(mesh: Mesh) -> bool:
-    return any(d.platform == "tpu" for d in mesh.devices.flat)
-
-
 class ShardedProgram:
     """A GraphProgram jitted with row-sharded inputs/outputs over a mesh."""
 
     def __init__(self, program: GraphProgram, mesh: Mesh):
         self.program = program
         self.mesh = mesh
-        if _mesh_is_tpu(mesh):
-            from ..utils import warnln
-
-            warnln(
-                "GSPMD sharding traces the portable (non-Pallas) kernels "
-                "(~4x slower on TPU); prefer --shard's halo path on hardware "
-                "(docs/sharding.md)"
-            )
         rows = row_sharding(mesh)
         repl = replicated(mesh)
 
         def _forward_portable(x, t):
-            # GSPMD cannot partition a pallas_call custom call; trace the
-            # portable jnp kernels so XLA can shard every op (ops.no_pallas).
             from ..kernels import ops as _ops
 
-            with _ops.no_pallas():
+            with _ops.plain_kernels():
                 return program._forward(x, t)
 
         self._fused = jax.jit(

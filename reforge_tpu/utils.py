@@ -1,6 +1,6 @@
 """Terminal coloring, warnings, small helpers.
 
-TPU-native re-implementation of the reference's cross-cutting utilities
+JAX re-implementation of the reference's cross-cutting utilities
 (reference: src/utils.rs). Behavior parity:
   - ``warnln`` prints a yellow warning to stderr, first clearing the in-place
     status line (src/utils.rs:13-18).

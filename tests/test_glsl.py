@@ -1232,7 +1232,7 @@ void main() {
 class TestJaxprStructure:
     """Structural (jaxpr-level) guarantees from SURVEY §4: constant-offset
     imageLoads must lower to pad+slice — no gather primitive — because a
-    gather at 4K is a bandwidth disaster on TPU; arbitrary coordinate math
+    gather at 4K costs far more memory traffic; arbitrary coordinate math
     legitimately gathers."""
 
     @staticmethod

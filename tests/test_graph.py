@@ -198,1051 +198,32 @@ class TestRgba16f:
         assert np.abs(got - ref).max() < 0.02
 
 
-class TestConvBundling:
-    """Same-input conv nodes bundle into one multi-output Pallas kernel on
-    the TPU fused path; outputs must match per-node execution exactly."""
-
-    def _flagship_src(self):
-        return (
-            "input -> soften -> mixer -> output\n"
-            "input -> crisp -> mixer:input_image2\n"
-            "soften: gaussian { sigma: 4.0 }\n"
-            "crisp: unsharp { sigma: 2.0, amount: 0.8 }\n"
-            "mixer: mix { factor: 0.5 }"
-        )
-
-    def test_bundle_groups_detection(self, monkeypatch):
-        from reforge_tpu.config import parse
-        from reforge_tpu.graph import build_graph
-        from reforge_tpu.graph.program import GraphProgram
-        from reforge_tpu.kernels import ops as kops
-        from reforge_tpu.kernels import pallas_ops
-
-        prog = GraphProgram(
-            build_graph(parse(self._flagship_src(), expects_input=True)), 64, 64
-        )
-        monkeypatch.setattr(kops, "_use_pallas", lambda: True)
-        monkeypatch.setattr(pallas_ops, "TRANSPOSE_MIN_WIDTH", 1)
-        layer0 = prog.graph.layers[0]
-        bundles, singles = prog._bundle_groups(layer0)
-        assert len(bundles) == 1
-        res, items = bundles[0]
-        assert {n.spec.name for n, _ in items} == {"gaussian", "unsharp"}
-        assert not singles
-        # rgba16f keeps the MXU per-node path.
-        prog16 = GraphProgram(
-            build_graph(parse(self._flagship_src(), expects_input=True)),
-            64, 64, "rgba16f",
-        )
-        b16, s16 = prog16._bundle_groups(prog16.graph.layers[0])
-        assert not b16 and len(s16) == 2
-
-    def test_bundled_matches_per_node(self, monkeypatch):
-        import functools
-
-        import jax.numpy as jnp
-
-        from reforge_tpu.config import parse
-        from reforge_tpu.graph import build_graph
-        from reforge_tpu.graph.program import GraphProgram
-        from reforge_tpu.kernels import ops as kops
-        from reforge_tpu.kernels import pallas_ops
-
-        graph = build_graph(parse(self._flagship_src(), expects_input=True))
-        prog = GraphProgram(graph, 72, 48)
-        rng = np.random.default_rng(5)
-        img = jnp.asarray(rng.random((4, 48, 72), dtype=np.float32))
-        want = np.asarray(prog._forward(img, jnp.float32(0.0)))  # per-node
-
-        monkeypatch.setattr(kops, "_use_pallas", lambda: True)
-        monkeypatch.setattr(pallas_ops, "TRANSPOSE_MIN_WIDTH", 1)
-        monkeypatch.setattr(
-            pallas_ops,
-            "sep_conv_fused_multi",
-            functools.partial(pallas_ops.sep_conv_fused_multi, interpret=True),
-        )
-        prog2 = GraphProgram(graph, 72, 48)
-        prog2._strip_plan = None  # isolate the layer-bundle path
-        got = np.asarray(prog2._forward(img, jnp.float32(0.0)))  # bundled
-        np.testing.assert_allclose(got, want, atol=1e-6)
-
-    def test_strip_fused_x3_heavy_conv(self, monkeypatch):
-        """Heavy convs (combined taps >= ops.X3_MIN_TAPS) still plan as a
-        single-tier megakernel at lane-multiple f32 widths — the in-kernel
-        MXU x3 stage takes them — and match per-node execution.  Before
-        the x3 stage, one sigma-8 node dropped the WHOLE graph to
-        per-node HBM round trips (measured 4K: 3.0 -> ~1.1 ms)."""
-        import functools
-
-        import jax.numpy as jnp
-
-        from reforge_tpu.config import parse
-        from reforge_tpu.graph import build_graph
-        from reforge_tpu.graph.program import GraphProgram
-        from reforge_tpu.kernels import ops as kops
-        from reforge_tpu.kernels import pallas_ops
-
-        src = (
-            "input -> gs -> tone -> output\n"
-            "gs: gaussian { sigma: 8.0 }\n"
-            "tone: tonemap { exposure: 1.1 }"
-        )
-        graph = build_graph(parse(src, expects_input=True))
-        prog = GraphProgram(graph, 128, 96)
-        assert prog._strip_plan is not None and prog._strip_plan[0] == "single"
-        # narrow widths (no lane multiple): heavy conv stays per-node
-        prog_narrow = GraphProgram(
-            build_graph(parse(src, expects_input=True)), 72, 48
-        )
-        assert prog_narrow._strip_plan is None
-
-        rng = np.random.default_rng(17)
-        img = jnp.asarray(rng.random((4, 96, 128), dtype=np.float32))
-        t = jnp.float32(0.3)
-        want = np.asarray(prog._forward(img, t))  # per-node (CPU: no pallas)
-
-        monkeypatch.setattr(kops, "_use_pallas", lambda: True)
-        monkeypatch.setattr(pallas_ops, "TRANSPOSE_MIN_WIDTH", 1)
-        monkeypatch.setattr(
-            pallas_ops,
-            "graph_strip_fused",
-            functools.partial(pallas_ops.graph_strip_fused, interpret=True),
-        )
-        got = prog._strip_fused_forward(img, t)
-        assert got is not None
-        # x3 runs bf16x3-split MXU dots: f32-exact to ~1 ulp of the
-        # VPU tap chain (measured 3.6e-7 max on the real chip at 4K).
-        np.testing.assert_allclose(np.asarray(got), want, atol=2e-6)
-
-        # rgba16f storage: heavy convs run single-product bf16 MXU band
-        # dots (the per-node prefer_mxu semantics — operand rounding is
-        # below storage precision); bound vs the CPU per-node reference
-        # (f32 compute + bf16 node boundaries) at bf16 precision.
-        graphb = build_graph(parse(src, expects_input=True))
-        progb = GraphProgram(graphb, 128, 96, "rgba16f")
-        assert progb._strip_plan is not None
-        assert progb._strip_plan[0] == "single"
-        xb = img.astype(progb.storage_dtype)
-        wantb = np.asarray(progb._forward(xb, t), np.float32)
-        gotb = progb._strip_fused_forward(xb, t)
-        assert gotb is not None
-        db = np.abs(np.asarray(gotb, np.float32) - wantb)
-        assert db.max() <= 2e-2, db.max()
-
-    def test_strip_fused_matches_per_node(self, monkeypatch):
-        """Whole-graph strip megakernel == per-node execution, bitwise-ish."""
-        import functools
-
-        import jax.numpy as jnp
-
-        from reforge_tpu.config import parse
-        from reforge_tpu.graph import build_graph
-        from reforge_tpu.graph.program import GraphProgram
-        from reforge_tpu.kernels import ops as kops
-        from reforge_tpu.kernels import pallas_ops
-
-        src = (
-            "input -> soften -> mixer -> tone -> vig -> output\n"
-            "input -> crisp -> mixer:input_image2\n"
-            "soften: gaussian { sigma: 4.0 }\n"
-            "crisp: unsharp { sigma: 2.0, amount: 0.8 }\n"
-            "mixer: mix { factor: 0.5 }\n"
-            "tone: tonemap { exposure: 1.1 }\n"
-            "vig: vignette { strength: 0.4 }"
-        )
-        for fmt in ("rgba32f", "rgba8"):
-            graph = build_graph(parse(src, expects_input=True))
-            prog = GraphProgram(graph, 72, 48, fmt)
-            assert prog._strip_plan is not None, fmt
-            tag, conv_items, pointwise = prog._strip_plan
-            assert tag == "single"
-            assert len(conv_items) == 2 and len(pointwise) == 3
-            rng = np.random.default_rng(6)
-            img = jnp.asarray(rng.random((4, 48, 72), dtype=np.float32))
-            t = jnp.float32(0.3)
-            want = np.asarray(prog._forward(img, t))  # per-node (CPU: no pallas)
-
-            monkeypatch.setattr(kops, "_use_pallas", lambda: True)
-            monkeypatch.setattr(pallas_ops, "TRANSPOSE_MIN_WIDTH", 1)
-            monkeypatch.setattr(
-                pallas_ops,
-                "graph_strip_fused",
-                functools.partial(pallas_ops.graph_strip_fused, interpret=True),
-            )
-            got = np.asarray(prog._strip_fused_forward(img, t))
-            if fmt == "rgba8":
-                # XLA-CPU FMA-contracts the jnp tap chain; interpret-mode
-                # pallas rounds each mul/add.  The <=1-ulp pre-quantize
-                # difference flips occasional 1/255 quantization buckets.
-                d = np.abs(got - want)
-                # a flipped bucket can cascade through one more quantized
-                # stage downstream: allow two steps.  The ~1-ulp FMA bias
-                # is image-wide, so the fraction of pixels straddling a
-                # 1/255 boundary tracks the value distribution (~8% here);
-                # the rgba32f case above pins the unquantized math to 1e-6.
-                assert d.max() <= 2.0 / 255.0 + 1e-6, d.max()
-                assert (d > 1.0 / 512.0).mean() < 0.15
-            else:
-                np.testing.assert_allclose(got, want, atol=1e-6, err_msg=fmt)
-            monkeypatch.undo()
-
-    def test_coord_plane_hoist_engages_and_matches(self, monkeypatch):
-        """The coordinate-plane hoist (vignette/scanlines planes built once
-        and streamed as a megakernel side input) must actually engage on
-        the whole-frame path and be bit-identical to the in-kernel cw_fn
-        fallback."""
-        import functools
-
-        from reforge_tpu.graph.program import GraphProgram
-        from reforge_tpu.kernels import ops as kops
-        from reforge_tpu.kernels import pallas_ops
-
-        src = (
-            "input -> soften -> vig -> lines -> output\n"
-            "soften: gaussian { sigma: 2.0 }\n"
-            "vig: vignette { strength: 0.5 }\n"
-            "lines: scanlines { period: 3, darkness: 0.4 }"
-        )
-        graph = build_graph(parse(src, expects_input=True))
-        prog = GraphProgram(graph, 72, 48)
-        assert prog._strip_plan is not None and prog._strip_plan[0] == "single"
-        img = rand_image(48, 72, seed=9)
-        t = jnp.float32(0.25)
-
-        monkeypatch.setattr(kops, "_use_pallas", lambda: True)
-        monkeypatch.setattr(pallas_ops, "TRANSPOSE_MIN_WIDTH", 1)
-        monkeypatch.setattr(
-            pallas_ops,
-            "graph_strip_fused",
-            functools.partial(pallas_ops.graph_strip_fused, interpret=True),
-        )
-        got = np.asarray(prog._strip_fused_forward(img, t))
-        # the hoist engaged: both plane nodes were prebuilt
-        assert prog._coord_plane_stack is not None
-        assert int(prog._coord_plane_stack.shape[0]) == 2
-
-        # fallback path (planes disabled) must agree exactly
-        for node in prog._strip_plan[2]:
-            monkeypatch.setattr(node.spec, "cw_coord_plane", None)
-        prog2 = GraphProgram(graph, 72, 48)
-        want = np.asarray(prog2._strip_fused_forward(img, t))
-        assert prog2._coord_plane_stack is None
-        # XLA contracts the in-kernel `x*(1 - s*smoothstep)` chain into
-        # FMAs; the prebuilt plane rounds the fade once.  1-2 ULP.
-        np.testing.assert_allclose(got, want, atol=3e-7, rtol=0)
-
-    MC_CASES = {
-        "conv_stencil_point": (
-            "input -> soft -> edges -> tone -> output\n"
-            "soft: blur { sigma: 4.0 }\nedges: sobel { amount: 1.0 }\n"
-            "tone: tonemap { exposure: 1.1 }"
-        ),
-        "conv_of_conv": (
-            "input -> a -> b -> output\n"
-            "a: blur { sigma: 3.0 }\nb: blur { sigma: 2.0 }"
-        ),
-        "bloom_pre_conv": (
-            "input -> glow -> output\n"
-            "glow: bloom { threshold: 0.4, sigma: 3.0, intensity: 0.8 }"
-        ),
-        "point_feeding_conv_fan": (
-            "input -> th -> bl -> m -> output\ninput -> m:input_image2\n"
-            "th: threshold { value: 0.4 }\nbl: blur { sigma: 2.0 }\n"
-            "m: mix { factor: 0.6 }"
-        ),
-        "median_saturation": (
-            "input -> med -> sat -> output\n"
-            "med: median3 {}\nsat: saturation { amount: 1.4 }"
-        ),
-        "sharpen_grayscale": (
-            "input -> sh -> gray -> output\n"
-            "sh: sharpen { amount: 0.7 }\ngray: grayscale {}"
-        ),
-        "coord_point_feeding_conv": (
-            # vignette is coordinate-dependent: exercises row/col offsets on
-            # extended blocks AND boundary replication of its halo.
-            "input -> v -> b -> output\n"
-            "v: vignette { strength: 0.5 }\nb: blur { sigma: 2.0 }"
-        ),
-        "emboss_unsharp_chain": (
-            "input -> e -> u -> output\n"
-            "e: emboss { amount: 0.9 }\nu: unsharp { sigma: 2.0, amount: 0.8 }"
-        ),
-    }
-
-    @pytest.mark.parametrize("name", sorted(MC_CASES))
-    def test_mc_strip_fused_matches_per_node(self, name, monkeypatch):
-        """The multi-stage mc megakernel == per-node execution, including
-        boundary semantics (per-node pads every INTERMEDIATE with edge
-        replication; the staged kernel must reproduce that, not compute
-        through its halos)."""
-        import functools
-
-        import jax.numpy as jnp
-
-        from reforge_tpu.config import parse
-        from reforge_tpu.graph import build_graph
-        from reforge_tpu.graph.program import GraphProgram
-        from reforge_tpu.kernels import ops as kops
-        from reforge_tpu.kernels import pallas_ops
-
-        src = self.MC_CASES[name]
-        graph = build_graph(parse(src, expects_input=True))
-        prog = GraphProgram(graph, 128, 48)
-        assert prog._strip_plan is not None and prog._strip_plan[0] == "mc", name
-        rng = np.random.default_rng(11)
-        img = jnp.asarray(rng.random((4, 48, 128), dtype=np.float32))
-        t = jnp.float32(0.3)
-        want = np.asarray(prog._forward(img, t))  # per-node (CPU: no pallas)
-
-        monkeypatch.setattr(kops, "_use_pallas", lambda: True)
-        monkeypatch.setattr(
-            pallas_ops,
-            "graph_strip_fused_mc",
-            functools.partial(pallas_ops.graph_strip_fused_mc, interpret=True),
-        )
-        got = prog._strip_fused_forward(img, t)
-        assert got is not None, name
-        np.testing.assert_allclose(np.asarray(got), want, atol=2e-6)
-
-    def test_mc_direct_store_bit_equal(self, monkeypatch):
-        """The conv W-pass's direct-to-pool transposed stores (rgba32f)
-        are a pure schedule change: bit-identical to the tmp-roundtrip
-        path (REFORGE_MC_DIRECT_STORE=0)."""
-        import functools
-
-        import jax.numpy as jnp
-
-        from reforge_tpu.config import parse
-        from reforge_tpu.graph import build_graph
-        from reforge_tpu.graph.program import GraphProgram
-        from reforge_tpu.kernels import ops as kops
-        from reforge_tpu.kernels import pallas_ops
-
-        src = self.MC_CASES["conv_of_conv"]
-        graph = build_graph(parse(src, expects_input=True))
-        prog = GraphProgram(graph, 128, 48)
-        assert prog._strip_plan is not None and prog._strip_plan[0] == "mc"
-        rng = np.random.default_rng(13)
-        img = jnp.asarray(rng.random((4, 48, 128), dtype=np.float32))
-        t = jnp.float32(0.3)
-        monkeypatch.setattr(kops, "_use_pallas", lambda: True)
-        monkeypatch.setattr(
-            pallas_ops,
-            "graph_strip_fused_mc",
-            functools.partial(pallas_ops.graph_strip_fused_mc, interpret=True),
-        )
-        direct = np.asarray(prog._strip_fused_forward(img, t))
-        monkeypatch.setenv("REFORGE_MC_DIRECT_STORE", "0")
-        roundtrip = np.asarray(prog._strip_fused_forward(img, t))
-        np.testing.assert_array_equal(direct, roundtrip)
-
-    def test_mc_gate_shape_aware(self):
-        """The wide-frame mc gate keys on conv EXTENTS, not conv presence:
-        zero-extent convs (terminal relative to halo lifting) fuse at any
-        width — measured 4K wins (tm-blur-tm 1.68x, sobel-tonemap 1.57x)
-        — while extent-carrying convs (chain3, blur2 shapes) keep
-        per-node execution at >= MC_CONV_MAX_WIDTH."""
-        from reforge_tpu.config import parse
-        from reforge_tpu.graph import build_graph
-        from reforge_tpu.graph.program import GraphProgram
-
-        def plan(src, w=3840, h=2160):
-            p = GraphProgram(build_graph(parse(src, expects_input=True)), w, h)
-            return p._strip_plan[0] if p._strip_plan else None
-
-        tm_blur_tm = (
-            "input -> tone -> gs -> tone2 -> output\n"
-            "tone: tonemap {}\ngs: gaussian { sigma: 2.0 }\ntone2: tonemap {}\n"
-        )
-        chain3 = (
-            "input -> gs -> edge -> tone -> output\n"
-            "gs: gaussian { sigma: 2.0 }\nedge: sobel {}\ntone: tonemap {}\n"
-        )
-        assert plan(tm_blur_tm) == "mc"          # zero-extent conv: fused
-        # conv feeds stencil: the whole-graph mc plan is gated; the
-        # segment tier fuses the stencil+pointwise tail instead
-        # (TestSegmentFusion) and the conv runs per-node.
-        assert plan(chain3) == "segments"
-        assert plan(chain3, w=1920, h=1080) == "mc"  # narrow: fused
-
-    def test_mc_carry_bit_equal(self, monkeypatch):
-        """The cross-strip sliding-window carry (a conv stage's overlap
-        rows persist from strip i-1 instead of being recomputed) is a
-        pure schedule change: bit-identical to full halo recompute
-        (REFORGE_MC_CARRY=0), across enough strips to chain carries."""
-        import functools
-
-        import jax.numpy as jnp
-
-        from reforge_tpu.config import parse
-        from reforge_tpu.graph import build_graph
-        from reforge_tpu.graph.program import GraphProgram
-        from reforge_tpu.kernels import ops as kops
-        from reforge_tpu.kernels import pallas_ops
-
-        src = self.MC_CASES["conv_of_conv"]
-        graph = build_graph(parse(src, expects_input=True))
-        prog = GraphProgram(graph, 128, 96)  # 4+ strips at tile 16-24
-        assert prog._strip_plan is not None and prog._strip_plan[0] == "mc"
-        assert any(
-            st.kind == "conv" and st.carry
-            for st in prog._strip_plan[1]["stages"]
-        )
-        rng = np.random.default_rng(29)
-        img = jnp.asarray(rng.random((4, 96, 128), dtype=np.float32))
-        t = jnp.float32(0.1)
-        monkeypatch.setattr(kops, "_use_pallas", lambda: True)
-        monkeypatch.setattr(
-            pallas_ops,
-            "graph_strip_fused_mc",
-            functools.partial(pallas_ops.graph_strip_fused_mc, interpret=True),
-        )
-        carried = np.asarray(prog._strip_fused_forward(img, t))
-        monkeypatch.setenv("REFORGE_MC_CARRY", "0")
-        recomputed = np.asarray(prog._strip_fused_forward(img, t))
-        np.testing.assert_array_equal(carried, recomputed)
-
-    def test_mc_direct_store_bit_equal_quantized(self, monkeypatch):
-        """Direct W-pass stores under quantized storage (store1 applied
-        per accumulator block — elementwise, so order-free) match the
-        tmp-roundtrip schedule bit-for-bit for rgba8 and rgba16f."""
-        import functools
-
-        import jax.numpy as jnp
-
-        from reforge_tpu.config import parse
-        from reforge_tpu.graph import build_graph
-        from reforge_tpu.graph.program import GraphProgram
-        from reforge_tpu.kernels import ops as kops
-        from reforge_tpu.kernels import pallas_ops
-
-        src = self.MC_CASES["conv_of_conv"]
-        rng = np.random.default_rng(31)
-        img32 = rng.random((4, 48, 128), dtype=np.float32)
-        t = jnp.float32(0.2)
-        monkeypatch.setattr(kops, "_use_pallas", lambda: True)
-        monkeypatch.setattr(
-            pallas_ops,
-            "graph_strip_fused_mc",
-            functools.partial(pallas_ops.graph_strip_fused_mc, interpret=True),
-        )
-        for fmt in ("rgba8", "rgba16f"):
-            graph = build_graph(parse(src, expects_input=True))
-            prog = GraphProgram(graph, 128, 48, fmt)
-            assert prog._strip_plan is not None and prog._strip_plan[0] == "mc"
-            x = jnp.asarray(img32).astype(prog.storage_dtype)
-            monkeypatch.setenv("REFORGE_MC_DIRECT_STORE", "1")
-            direct = np.asarray(prog._strip_fused_forward(x, t), np.float32)
-            monkeypatch.setenv("REFORGE_MC_DIRECT_STORE", "0")
-            roundtrip = np.asarray(
-                prog._strip_fused_forward(x, t), np.float32
-            )
-            np.testing.assert_array_equal(direct, roundtrip, err_msg=fmt)
-
-    def test_mc_strip_fused_lane_aligned_extents(self, monkeypatch):
-        """MC_EW_ALIGN=128 (lane-aligned pool blocks — the wide-frame
-        experiment knob) must produce identical results: wider halo
-        columns are synthesized then cropped, never observed."""
-        import functools
-
-        from reforge_tpu.graph import program as prog_mod
-        from reforge_tpu.graph.program import GraphProgram
-        from reforge_tpu.kernels import ops as kops
-        from reforge_tpu.kernels import pallas_ops
-
-        src = self.MC_CASES["conv_stencil_point"]
-        graph = build_graph(parse(src, expects_input=True))
-        rng = np.random.default_rng(11)
-        img = jnp.asarray(rng.random((4, 48, 128), dtype=np.float32))
-        t = jnp.float32(0.3)
-        prog0 = GraphProgram(graph, 128, 48)
-        want = np.asarray(prog0._forward(img, t))  # per-node
-
-        monkeypatch.setattr(prog_mod, "MC_EW_ALIGN", 128)
-        prog = GraphProgram(graph, 128, 48)
-        assert prog._strip_plan is not None and prog._strip_plan[0] == "mc"
-        monkeypatch.setattr(kops, "_use_pallas", lambda: True)
-        monkeypatch.setattr(
-            pallas_ops,
-            "graph_strip_fused_mc",
-            functools.partial(pallas_ops.graph_strip_fused_mc, interpret=True),
-        )
-        got = prog._strip_fused_forward(img, t)
-        assert got is not None
-        np.testing.assert_allclose(np.asarray(got), want, atol=2e-6)
-
-    def test_mc_strip_fused_formats(self, monkeypatch):
-        """rgba8 quantizes and rgba16f bf16-rounds at every node boundary
-        inside the mc megakernel, matching per-node storage semantics."""
-        import functools
-
-        import jax.numpy as jnp
-
-        from reforge_tpu.config import parse
-        from reforge_tpu.graph import build_graph
-        from reforge_tpu.graph.program import GraphProgram
-        from reforge_tpu.kernels import ops as kops
-        from reforge_tpu.kernels import pallas_ops
-
-        src = self.MC_CASES["conv_stencil_point"]
-        rng = np.random.default_rng(3)
-        img32 = rng.random((4, 48, 128), dtype=np.float32)
-        t = jnp.float32(0.0)
-        # rgba16f: the sigma-4 blur (50 combined taps) runs as a
-        # single-product bf16 MXU band conv (McStage.mxu), whose H-pass
-        # intermediate rounds to bf16 — one extra ~2^-8 relative rounding
-        # that the downstream sobel's +/-1,+/-2 tap sums amplify ~8x
-        # (measured spatially-uniform 0.022 max, 0.0014 mean vs the CPU
-        # f32-compute reference; per-node TPU execution uses the same
-        # prefer_mxu operand rounding, so on-chip the paths agree closer).
-        for fmt, tol in (("rgba8", 2.0 / 255.0 + 1e-6), ("rgba16f", 4e-2)):
-            graph = build_graph(parse(src, expects_input=True))
-            prog = GraphProgram(graph, 128, 48, fmt)
-            assert prog._strip_plan is not None and prog._strip_plan[0] == "mc"
-            img = jnp.asarray(img32)
-            want = np.asarray(prog._forward(img, t), np.float32)
-
-            monkeypatch.setattr(kops, "_use_pallas", lambda: True)
-            monkeypatch.setattr(
-                pallas_ops,
-                "graph_strip_fused_mc",
-                functools.partial(
-                    pallas_ops.graph_strip_fused_mc, interpret=True
-                ),
-            )
-            x = img.astype(prog.storage_dtype)
-            got = prog._strip_fused_forward(x, t)
-            assert got is not None, fmt
-            d = np.abs(np.asarray(got, np.float32) - want)
-            # rgba8: sub-ulp FMA differences can flip 1/255 quantization
-            # buckets (see test_strip_fused_matches_per_node); rgba16f:
-            # bf16 rounding at node boundaries bounds the drift.
-            assert d.max() <= tol, (fmt, d.max())
-            monkeypatch.undo()
-
-    def test_strip_plan_cross_channel_routes_to_mc(self):
-        from reforge_tpu.config import parse
-        from reforge_tpu.graph import build_graph
-        from reforge_tpu.graph.program import GraphProgram
-
-        # grayscale is cross-channel (luma): no cw form, so the
-        # per-channel single plan bails — the mc plan takes it instead
-        # (at lane-multiple widths; below that, per-node execution).
-        src = (
-            "input -> gs -> gray -> output\n"
-            "gs: gaussian { sigma: 2.0 }\ngray: grayscale {}"
-        )
-        prog = GraphProgram(build_graph(parse(src, expects_input=True)), 128, 48)
-        assert prog._strip_plan is not None and prog._strip_plan[0] == "mc"
-        prog64 = GraphProgram(build_graph(parse(src, expects_input=True)), 64, 48)
-        assert prog64._strip_plan is None
-
-    # bf16-storage MXU band conv stages (McStage.mxu): every conv-source
-    # class — the raw bf16 strip, a store1'd pool block, a raw-f32
-    # pre-map block — plus the epilogue and identity store targets.
-    MXU_CASES = {
-        "strip_identity_conv": (
-            "input -> gs -> edge -> tone -> output\n"
-            "gs: blur { sigma: 4.0 }\nedge: sobel {}\ntone: tonemap {}"
-        ),
-        "pool_reading_conv": (
-            "input -> tone -> gs -> output\n"
-            "tone: tonemap {}\ngs: blur { sigma: 4.0 }"
-        ),
-        "epilogue_conv": (
-            "input -> u -> gray -> output\n"
-            "u: unsharp { sigma: 4.0, amount: 0.8 }\ngray: grayscale {}"
-        ),
-        "pre_map_conv": (
-            "input -> glow -> output\n"
-            "glow: bloom { threshold: 0.4, sigma: 4.0, intensity: 0.8 }"
-        ),
-        "conv_of_conv": (
-            "input -> a -> b -> output\n"
-            "a: blur { sigma: 4.0 }\nb: blur { sigma: 3.0 }"
-        ),
-    }
-
-    @pytest.mark.parametrize("name", sorted(MXU_CASES))
-    def test_mc_mxu_band_conv_matches_per_node(self, name, monkeypatch):
-        """bf16 storage: heavy conv stages run as single-product MXU band
-        matmuls inside the mc megakernel.  Bound vs the CPU per-node
-        reference (f32 compute, bf16 node boundaries): the MXU path adds
-        one bf16 rounding of the H-pass intermediate (~2^-8 relative),
-        amplified by downstream derivative kernels (sobel/emboss) — 4e-2
-        covers the measured worst case with margin; per-node execution ON
-        TPU uses the same prefer_mxu operand rounding."""
-        import functools
-
-        import jax.numpy as jnp
-
-        from reforge_tpu.config import parse
-        from reforge_tpu.graph import build_graph
-        from reforge_tpu.graph.program import GraphProgram
-        from reforge_tpu.kernels import ops as kops
-        from reforge_tpu.kernels import pallas_ops
-
-        src = self.MXU_CASES[name]
-        graph = build_graph(parse(src, expects_input=True))
-        prog = GraphProgram(graph, 128, 96, "rgba16f")
-        assert prog._strip_plan is not None and prog._strip_plan[0] == "mc"
-        conv_stages = [
-            s for s in prog._strip_plan[1]["stages"] if s.kind == "conv"
-        ]
-        assert conv_stages and all(s.mxu for s in conv_stages), name
-        assert all(not s.carry for s in conv_stages), name
-
-        rng = np.random.default_rng(7)
-        img = jnp.asarray(rng.random((4, 96, 128), dtype=np.float32))
-        t = jnp.float32(0.3)
-        want = np.asarray(prog._forward(img, t), np.float32)
-
-        monkeypatch.setattr(kops, "_use_pallas", lambda: True)
-        monkeypatch.setattr(
-            pallas_ops,
-            "graph_strip_fused_mc",
-            functools.partial(pallas_ops.graph_strip_fused_mc, interpret=True),
-        )
-        got = prog._strip_fused_forward(img.astype(prog.storage_dtype), t)
-        assert got is not None, name
-        d = np.abs(np.asarray(got, np.float32) - want)
-        assert d.max() <= 4e-2, (name, d.max())
-        assert d.mean() <= 5e-3, (name, d.mean())
-
-    # f32-storage HEAVY convs (>= ops.X3_MIN_TAPS combined taps, where
-    # per-node execution switches to the standalone MXU x3 kernel) ride
-    # the mc kernel's MXU as f32-exact bf16x3 band matmuls
-    # (McStage.mxu_terms == 3) instead of gating the whole graph to
-    # per-node HBM round trips.  sigma 6 -> radius 18 -> 74 combined taps.
-    MXU_X3_CASES = {
-        "strip_heavy_conv_chain": (
-            "input -> gs -> edge -> tone -> output\n"
-            "gs: gaussian { sigma: 6.0 }\nedge: sobel {}\ntone: tonemap {}"
-        ),
-        "pool_heavy_conv": (
-            "input -> tone -> gs -> output\n"
-            "tone: tonemap {}\ngs: gaussian { sigma: 6.0 }"
-        ),
-        "heavy_conv_of_conv": (
-            "input -> a -> b -> output\n"
-            "a: gaussian { sigma: 6.0 }\nb: gaussian { sigma: 6.0 }"
-        ),
-    }
-
-    # rgba8 is excluded from the x3 form on hardware (store1 quantize in
-    # the x3 W-tile loop measured 13.5 ms vs 5.5 per-node; see
-    # _conv_mxu_terms) — only rgba32f builds terms-3 stages.
-    @pytest.mark.parametrize("name", sorted(MXU_X3_CASES))
-    @pytest.mark.parametrize("fmt", ["rgba32f"])
-    def test_mc_mxu_x3_band_conv_matches_per_node(
-        self, name, fmt, monkeypatch
-    ):
-        """f32 storage: heavy conv stages run as bf16x3 MXU band matmuls
-        (the six significant Dekker cross-products per pass) inside the
-        mc megakernel — f32-exact to a few ulps vs the CPU per-node f32
-        reference, unlike the bf16-storage single-product form."""
-        import functools
-
-        import jax.numpy as jnp
-
-        from reforge_tpu.config import parse
-        from reforge_tpu.graph import build_graph
-        from reforge_tpu.graph.program import GraphProgram
-        from reforge_tpu.kernels import ops as kops
-        from reforge_tpu.kernels import pallas_ops
-
-        # The f32 bf16x3 form is width-gated on hardware (wins at >=
-        # 2560, loses to per-node x3 below); lift it for the test size.
-        monkeypatch.setenv("REFORGE_MC_MXU_F32_MIN_WIDTH", "1")
-        src = self.MXU_X3_CASES[name]
-        graph = build_graph(parse(src, expects_input=True))
-        prog = GraphProgram(graph, 128, 96, fmt)
-        assert prog._strip_plan is not None and prog._strip_plan[0] == "mc"
-        conv_stages = [
-            s for s in prog._strip_plan[1]["stages"] if s.kind == "conv"
-        ]
-        assert conv_stages and all(
-            s.mxu and s.mxu_terms == 3 for s in conv_stages
-        ), name
-        assert prog._strip_plan[1]["mxu_t_max"] == 3
-
-        rng = np.random.default_rng(11)
-        img = jnp.asarray(rng.random((4, 96, 128), dtype=np.float32))
-        t = jnp.float32(0.3)
-        want = np.asarray(prog._forward(img, t), np.float32)
-
-        monkeypatch.setattr(kops, "_use_pallas", lambda: True)
-        monkeypatch.setattr(
-            pallas_ops,
-            "graph_strip_fused_mc",
-            functools.partial(pallas_ops.graph_strip_fused_mc, interpret=True),
-        )
-        got = prog._strip_fused_forward(img.astype(prog.storage_dtype), t)
-        assert got is not None, name
-        d = np.abs(np.asarray(got, np.float32) - want)
-        # bf16x3 drops the three sub-f32-precision cross products:
-        # a few ulps of f32 on O(1) values, amplified ~8x by sobel
-        assert d.max() <= 2e-5, (name, d.max())
-        assert d.mean() <= 2e-6, (name, d.mean())
-
-    def test_mc_mxu_x3_excludes_rgba8(self, monkeypatch):
-        """rgba8 heavy convs never build terms-3 stages (the quantize in
-        the x3 W-tile loop is pathological on chip) — the graph keeps
-        per-node execution."""
-        from reforge_tpu.config import parse
-        from reforge_tpu.graph import build_graph
-        from reforge_tpu.graph.program import GraphProgram
-
-        monkeypatch.setenv("REFORGE_MC_MXU_F32_MIN_WIDTH", "1")
-        src = self.MXU_X3_CASES["heavy_conv_of_conv"]
-        graph = build_graph(parse(src, expects_input=True))
-        prog = GraphProgram(graph, 128, 96, "rgba8")
-        assert prog._strip_plan is None
-
-    @pytest.mark.parametrize("fmt", ["rgba32f", "rgba16f"])
-    def test_mxu_w2_band_matches_w3(self, fmt, monkeypatch):
-        """The 2-tile W band (lane-rotated H-result stores,
-        _band_matrices_w2_shiftstore) produces the same output as the
-        generic 3-tile band in BOTH megakernels — the bands hold the
-        same exact-f32 weights, only the tile alignment differs, so any
-        drift is contraction-order noise."""
-        import functools
-
-        import jax.numpy as jnp
-
-        from reforge_tpu.config import parse
-        from reforge_tpu.graph import build_graph
-        from reforge_tpu.graph.program import GraphProgram
-        from reforge_tpu.kernels import ops as kops
-        from reforge_tpu.kernels import pallas_ops
-
-        monkeypatch.setenv("REFORGE_MC_MXU_F32_MIN_WIDTH", "1")
-        monkeypatch.setattr(kops, "_use_pallas", lambda: True)
-        monkeypatch.setattr(pallas_ops, "TRANSPOSE_MIN_WIDTH", 1)
-        for fn in ("graph_strip_fused", "graph_strip_fused_mc"):
-            monkeypatch.setattr(
-                pallas_ops, fn,
-                functools.partial(getattr(pallas_ops, fn), interpret=True),
-            )
-        rng = np.random.default_rng(23)
-        img = jnp.asarray(rng.random((4, 96, 128), dtype=np.float32))
-        t = jnp.float32(0.3)
-        cases = {
-            "single": (
-                "input -> gs -> tone -> output\n"
-                "gs: gaussian { sigma: 8.0 }\ntone: tonemap {}"
-            ),
-            "mc": self.MXU_X3_CASES["heavy_conv_of_conv"],
-        }
-        for tag, src in cases.items():
-            outs = {}
-            for w2 in ("1", "0"):
-                monkeypatch.setenv("REFORGE_MXU_W2", w2)
-                prog = GraphProgram(
-                    build_graph(parse(src, expects_input=True)), 128, 96, fmt
-                )
-                assert prog._strip_plan is not None, (tag, fmt)
-                assert prog._strip_plan[0] == tag, (tag, fmt)
-                got = prog._strip_fused_forward(
-                    img.astype(prog.storage_dtype), t
-                )
-                assert got is not None, (tag, fmt, w2)
-                outs[w2] = np.asarray(got, np.float32)
-            d = np.abs(outs["1"] - outs["0"])
-            tol = 1e-5 if fmt == "rgba32f" else 1e-2
-            assert d.max() <= tol, (tag, fmt, d.max())
-
-    def test_mc_mxu_gate_bf16_wide_frames(self, monkeypatch):
-        """At >= MC_CONV_MAX_WIDTH, extent-carrying convs gate the mc plan
-        ONLY when they can't ride the MXU: bf16 storage with >= 24
-        combined taps fuses the whole graph (measured 2.06x vs per-node
-        at 4K, BENCH.md), while f32 storage and light bf16 convs keep the
-        segment/per-node plans."""
-        from reforge_tpu.config import parse
-        from reforge_tpu.graph import build_graph
-        from reforge_tpu.graph.program import GraphProgram
-
-        def plan_kind(sigma, fmt):
-            src = (
-                "input -> gs -> edge -> tone -> output\n"
-                "gs: gaussian { sigma: %s }\n"
-                "edge: sobel {}\ntone: tonemap {}" % sigma
-            )
-            graph = build_graph(parse(src, expects_input=True))
-            prog = GraphProgram(graph, 3840, 2160, fmt)
-            return prog._strip_plan and prog._strip_plan[0]
-
-        # sigma 4 (50 combined taps): bf16 -> whole-graph mc via MXU
-        assert plan_kind(4, "rgba16f") == "mc"
-        # sigma 2 (26 combined taps): still above the MXU crossover
-        assert plan_kind(2, "rgba16f") == "mc"
-        # same graph, f32 storage: extent conv still gated -> segments
-        # (50 taps < X3_MIN_TAPS; forcing the bf16x3 mc stage measured
-        # 0.52x per-node — the VPU per-node conv is faster at mid taps)
-        assert plan_kind(4, "rgba32f") == "segments"
-        # sigma 1 (14 taps, below the MXU crossover): bf16 stays gated
-        assert plan_kind(1, "rgba16f") == "segments"
-        # HEAVY f32 convs (>= X3_MIN_TAPS) ride the in-kernel bf16x3 MXU
-        # stage: whole-graph mc at any width (1.27-1.42x per-node, BENCH)
-        assert plan_kind(8, "rgba32f") == "mc"
-        assert plan_kind(5, "rgba32f") == "mc"
-
-
-class TestSegmentFusion:
-    """The third fusion tier (program.py::_plan_strip_segments): when the
-    whole graph can't fuse — an extent-carrying conv gated at wide frames
-    (ops.MC_CONV_MAX_WIDTH) or an unfusable node in the middle — the
-    maximal fusible SEGMENTS run as child megakernels and only the
-    blocking nodes run per-node.  Measured 4K chain3: hybrid 0.78 ms vs
-    per-node 1.15 (BENCH.md mc table)."""
-
-    CHAIN3 = (
-        "input -> gs -> edge -> tone -> output\n"
-        "gs: gaussian { sigma: 2 }\nedge: sobel {}\ntone: tonemap {}\n"
-    )
-
-    def _gated(self, monkeypatch, src, w=128, h=48, fmt="rgba32f"):
-        from reforge_tpu.config import parse
-        from reforge_tpu.graph import build_graph
-        from reforge_tpu.graph.program import GraphProgram
-        from reforge_tpu.kernels import ops as kops
-
-        # Gate extent-carrying convs at every width so the segment tier
-        # triggers at test sizes (on hardware it starts at 2560).
-        monkeypatch.setattr(kops, "MC_CONV_MAX_WIDTH", 1)
-        return GraphProgram(build_graph(parse(src, expects_input=True)), w, h,
-                            fmt)
-
-    def test_plan_structure_chain3(self, monkeypatch):
-        prog = self._gated(monkeypatch, self.CHAIN3)
-        plan = prog._strip_plan
-        assert plan is not None and plan[0] == "segments"
-        kinds = [(s[0], s[1].name if s[0] == "node"
-                  else [n.name for n in s[4]]) for s in plan[1]]
-        # the gated conv stays per-node; the stencil+pointwise tail fuses
-        assert kinds == [("node", "gs"), ("seg", ["edge", "tone"])]
-        seg = plan[1][1]
-        assert seg[1]._strip_plan[0] == "mc"
-        assert seg[2] == "gs:output_image"
-
-    def test_two_segments_around_gated_conv(self, monkeypatch):
-        src = (
-            "input -> tm -> gs -> edge -> tm2 -> output\n"
-            "tm: tonemap {}\ngs: gaussian { sigma: 2 }\n"
-            "edge: sobel {}\ntm2: tonemap {}\n"
-        )
-        prog = self._gated(monkeypatch, src)
-        plan = prog._strip_plan
-        assert plan is not None and plan[0] == "segments"
-        segs = [[n.name for n in s[4]] for s in plan[1] if s[0] == "seg"]
-        # tm -> gs fuses (gs is zero-extent INSIDE its child graph);
-        # edge -> tm2 fuses; nothing is left per-node.
-        assert segs == [["tm", "gs"], ["edge", "tm2"]]
-
-    def test_blur2_has_no_segments(self, monkeypatch):
-        # two chained gated convs: no fusible segment (a lone conv
-        # segment buys nothing) — plan None, plain per-node execution.
-        src = (
-            "input -> a -> b -> output\n"
-            "a: gaussian { sigma: 2 }\nb: gaussian { sigma: 2 }\n"
-        )
-        prog = self._gated(monkeypatch, src)
-        assert prog._strip_plan is None
-
-    def test_single_stencil_segment(self, monkeypatch):
-        # conv -> stencil: the lone sobel still fuses (the mc stencil
-        # stage beats the standalone kernel, 1.39x at 4K).
-        src = (
-            "input -> gs -> edge -> output\n"
-            "gs: gaussian { sigma: 2 }\nedge: sobel {}\n"
-        )
-        prog = self._gated(monkeypatch, src)
-        plan = prog._strip_plan
-        assert plan is not None and plan[0] == "segments"
-        kinds = [(s[0], s[1].name if s[0] == "node"
-                  else [n.name for n in s[4]]) for s in plan[1]]
-        assert kinds == [("node", "gs"), ("seg", ["edge"])]
-
-    def test_non_lane_multiple_width_bails(self, monkeypatch):
-        prog = self._gated(monkeypatch, self.CHAIN3, w=120)
-        assert prog._strip_plan is None
-
-    @pytest.mark.parametrize("case", ["chain3", "heads_tails"])
-    def test_segments_match_per_node(self, case, monkeypatch):
-        """Hybrid execution == per-node execution (the child megakernels
-        preserve inter-node storage semantics at segment boundaries)."""
-        import functools
-
-        import jax.numpy as jnp
-
-        from reforge_tpu.kernels import ops as kops
-        from reforge_tpu.kernels import pallas_ops
-
-        src = {
-            "chain3": self.CHAIN3,
-            "heads_tails": (
-                "input -> tm -> gs -> edge -> tm2 -> output\n"
-                "tm: tonemap {}\ngs: gaussian { sigma: 2 }\n"
-                "edge: sobel {}\ntm2: tonemap {}\n"
-            ),
-        }[case]
-        prog = self._gated(monkeypatch, src)
-        assert prog._strip_plan is not None
-        assert prog._strip_plan[0] == "segments"
-        rng = np.random.default_rng(7)
-        img = jnp.asarray(rng.random((4, 48, 128), dtype=np.float32))
-        t = jnp.float32(0.3)
-        want = np.asarray(prog._forward(img, t))  # per-node (CPU: no pallas)
-
-        monkeypatch.setattr(kops, "_use_pallas", lambda: True)
-        for fname in ("graph_strip_fused_mc", "graph_strip_fused",
-                      "sep_conv_fused", "stencil_apply", "conv1d_h",
-                      "conv1d_w"):
-            monkeypatch.setattr(
-                pallas_ops, fname,
-                functools.partial(getattr(pallas_ops, fname), interpret=True),
-            )
-        got = prog._forward(img, t)
-        np.testing.assert_allclose(np.asarray(got), want, atol=2e-6)
-
-    def test_runtime_gate_falls_back_per_node(self, monkeypatch):
-        """A child whose runtime tile gate says no executes its original
-        nodes per-node — bit-equal to full per-node execution."""
-        import jax.numpy as jnp
-
-        from reforge_tpu.kernels import ops as kops
-
-        prog = self._gated(monkeypatch, self.CHAIN3)
-        # CPU backend: _use_pallas() False -> every child returns None.
-        rng = np.random.default_rng(9)
-        img = jnp.asarray(rng.random((4, 48, 128), dtype=np.float32))
-        t = jnp.float32(0.3)
-        got = np.asarray(prog._forward(img, t))
-        prog2 = self._gated(monkeypatch, self.CHAIN3)
-        prog2._strip_plan = None
-        want = np.asarray(prog2._forward(img, t))
-        np.testing.assert_array_equal(got, want)
-
-
-class TestGlslMegakernel:
-    """User .comp shaders in the mc megakernel: block-evaluated point
-    stages, probe-synthesized conv/stencil plans (glsl/affine.py), and
-    1-D conv-pair composition.  The reference runs user shaders in the
-    same hot loop as everything else (src/vulkan/command.rs:166-242);
-    these tests pin that parity for the TPU build.  Measured 4K rgba32f
-    (v5e): gaussian_h->gaussian_v->tonemap 1240 fps fused vs 387 plain
-    (BENCH.md GLSL graphs)."""
-
-    CASES = {
-        # conv synthesis + composition: the separable pair becomes ONE
-        # zero-extent conv stage (with alpha passthrough epilogue).
-        "pair_compose": (
-            "input -> gh -> gv -> tm -> output\n"
-            "gh: gaussian_h { sigma: 2.0 }\ngv: gaussian_v { sigma: 2.0 }\n"
-            "tm: tonemap { exposure: 1.1 }"
-        ),
-        # non-separable affine tap-sum -> stencil stage.
-        "stencil_synth": (
-            "input -> sh -> tm -> output\n"
-            "sh: sharpen { amount: 0.7 }\ntm: tonemap { exposure: 1.0 }"
-        ),
-        # GLSL conv + GLSL point mixing with nothing builtin.
-        "conv_point": (
-            "input -> gh -> sep -> output\n"
-            "gh: gaussian_h { sigma: 3.0 }\nsep: sepia {}"
-        ),
-        # GLSL pointwise with a builtin conv (block evaluation of the
-        # interpreter inside the kernel, incl. col/row offsets).
-        "glsl_point_builtin_conv": (
-            "input -> tm -> b -> output\n"
-            "tm: tonemap { exposure: 1.2 }\nb: blur { sigma: 2.0 }"
-        ),
-        # single 1-D GLSL conv, uncomposed (epilogue carries alpha).
-        "single_1d": (
-            "input -> gv -> tm -> output\n"
-            "gv: gaussian_v { sigma: 2.0 }\ntm: tonemap {}"
-        ),
-    }
-
-    @pytest.mark.parametrize("name", sorted(CASES))
-    def test_glsl_mc_matches_per_node(self, name, monkeypatch):
-        import functools
-
-        import jax.numpy as jnp
-
-        from reforge_tpu.config import parse_file
-        from reforge_tpu.graph import build_graph
-        from reforge_tpu.graph.program import GraphProgram
-        from reforge_tpu.kernels import ops as kops
-        from reforge_tpu.kernels import pallas_ops
-
-        src = self.CASES[name]
-        graph = build_graph(
-            parse_file(src, expects_input=True, shader_path="shaders")
-        )
-        prog = GraphProgram(graph, 128, 48)
-        assert prog._strip_plan is not None and prog._strip_plan[0] == "mc", name
-        rng = np.random.default_rng(11)
-        img = jnp.asarray(rng.random((4, 48, 128), dtype=np.float32))
-        t = jnp.float32(0.3)
-        sp = prog._strip_plan
-        prog._strip_plan = None
-        want = np.asarray(prog._forward(img, t))
-        prog._strip_plan = sp
-        monkeypatch.setattr(kops, "_use_pallas", lambda: True)
-        monkeypatch.setattr(
-            pallas_ops,
-            "graph_strip_fused_mc",
-            functools.partial(pallas_ops.graph_strip_fused_mc, interpret=True),
-        )
-        got = prog._strip_fused_forward(img, t)
-        assert got is not None, name
-        np.testing.assert_allclose(np.asarray(got), want, atol=5e-5)
-
-    def test_glsl_chain_rgba16f_mxu(self, monkeypatch):
-        """The composed GLSL conv at bf16 storage rides the single-product
-        MXU band stage (fast mode), agreeing with per-node execution to
-        O(1 bf16 ulp) — the documented tier-arithmetic contract
-        (docs/architecture.md)."""
-        import functools
-
-        import jax.numpy as jnp
-
-        from reforge_tpu.config import parse_file
-        from reforge_tpu.graph import build_graph
-        from reforge_tpu.graph.program import GraphProgram
-        from reforge_tpu.kernels import ops as kops
-        from reforge_tpu.kernels import pallas_ops
-
-        graph = build_graph(
-            parse_file(
-                self.CASES["pair_compose"], expects_input=True,
-                shader_path="shaders",
-            )
-        )
-        prog = GraphProgram(graph, 128, 48, "rgba16f")
-        assert prog._strip_plan is not None and prog._strip_plan[0] == "mc"
-        conv = prog._strip_plan[1]["stages"][0]
-        assert conv.mxu and conv.mxu_terms == 1 and conv.epilogue is not None
-        rng = np.random.default_rng(11)
-        img = jnp.asarray(rng.random((4, 48, 128), dtype=np.float32))
-        t = jnp.float32(0.3)
-        sp = prog._strip_plan
-        prog._strip_plan = None
-        want = np.asarray(prog._forward(img, t), np.float32)
-        prog._strip_plan = sp
-        monkeypatch.setattr(kops, "_use_pallas", lambda: True)
-        monkeypatch.setattr(
-            pallas_ops,
-            "graph_strip_fused_mc",
-            functools.partial(pallas_ops.graph_strip_fused_mc, interpret=True),
-        )
-        got = np.asarray(prog._strip_fused_forward(img, t), np.float32)
-        # one bf16 ulp at ~1.0 is 2^-8
-        np.testing.assert_allclose(got, want, atol=2 ** -7)
-
-    ASYM_1D = """#version 450
+FLAGSHIP = (
+    "input -> soften -> mixer -> tone -> vig -> output\n"
+    "input -> crisp -> mixer:input_image2\n"
+    "soften: gaussian { sigma: 4.0 }\n"
+    "crisp: unsharp { sigma: 2.0, amount: 0.8 }\n"
+    "mixer: mix { factor: 0.5 }\n"
+    "tone: tonemap { exposure: 1.1 }\n"
+    "vig: vignette { strength: 0.4 }"
+)
+CONV_STENCIL_POINT = (
+    "input -> soft -> edges -> tone -> output\n"
+    "soft: blur { sigma: 4.0 }\nedges: sobel { amount: 1.0 }\n"
+    "tone: tonemap { exposure: 1.1 }"
+)
+CHAIN3 = (
+    "input -> gs -> edge -> tone -> output\n"
+    "gs: gaussian { sigma: 2 }\nedge: sobel {}\ntone: tonemap {}\n"
+)
+GLSL_PAIR = (
+    "input -> gh -> gv -> tm -> output\n"
+    "gh: gaussian_h { sigma: 2.0 }\ngv: gaussian_v { sigma: 2.0 }\n"
+    "tm: tonemap { exposure: 1.1 }"
+)
+# A directional (asymmetric) clamped tap sum, and an unclamped one whose
+# out-of-image loads read zeros (GL robust access).
+ASYM_1D = """#version 450
 layout (local_size_x = 16, local_size_y = 16) in;
 layout (binding = 0, rgba32f) uniform readonly image2D input_image;
 layout (binding = 1, rgba32f) uniform writeonly image2D output_image;
@@ -1256,48 +237,7 @@ void main() {
     imageStore(output_image, pos, vec4(acc, imageLoad(input_image, pos).a));
 }
 """
-
-    def test_asymmetric_glsl_conv_exact(self, tmp_path, monkeypatch):
-        """An ASYMMETRIC tap kernel (directional motion blur) must come
-        through synthesis un-mirrored: the impulse response is the
-        REVERSED tap vector, which symmetric gaussians masked (caught by
-        the synthesis fuzz suite; fixed by flipping the extracted
-        window)."""
-        import functools
-
-        import jax.numpy as jnp
-
-        from reforge_tpu.config import parse_file
-        from reforge_tpu.graph import build_graph
-        from reforge_tpu.graph.program import GraphProgram
-        from reforge_tpu.kernels import ops as kops
-        from reforge_tpu.kernels import pallas_ops
-
-        (tmp_path / "mblur.comp").write_text(self.ASYM_1D)
-        src = "input -> mblur -> tm -> output\ntm: tonemap {}"
-        graph = build_graph(
-            parse_file(src, expects_input=True, shader_path=str(tmp_path))
-        )
-        prog = GraphProgram(graph, 128, 48)
-        assert prog._strip_plan is not None and prog._strip_plan[0] == "mc"
-        rng = np.random.default_rng(11)
-        img = jnp.asarray(rng.random((4, 48, 128), dtype=np.float32))
-        t = jnp.float32(0.0)
-        sp = prog._strip_plan
-        prog._strip_plan = None
-        want = np.asarray(prog._forward(img, t))
-        prog._strip_plan = sp
-        monkeypatch.setattr(kops, "_use_pallas", lambda: True)
-        monkeypatch.setattr(
-            pallas_ops,
-            "graph_strip_fused_mc",
-            functools.partial(pallas_ops.graph_strip_fused_mc, interpret=True),
-        )
-        got = prog._strip_fused_forward(img, t)
-        assert got is not None
-        np.testing.assert_allclose(np.asarray(got), want, atol=5e-6)
-
-    ZERO_1D = """#version 450
+ZERO_1D = """#version 450
 layout (local_size_x = 16, local_size_y = 16) in;
 layout (binding = 0, rgba32f) uniform readonly image2D input_image;
 layout (binding = 1, rgba32f) uniform writeonly image2D output_image;
@@ -1313,285 +253,170 @@ void main() {
 }
 """
 
-    def test_zero_border_glsl_conv_fuses(self, tmp_path, monkeypatch):
-        """A NAIVE (unclamped) tap-sum — GL robust OOB zeros — fuses as a
-        zero-mode mc plan, exact against the interpreter's zero-pad
-        shifts including borders."""
-        import functools
-
-        import jax.numpy as jnp
-
-        from reforge_tpu.config import parse_file
-        from reforge_tpu.graph import build_graph
-        from reforge_tpu.graph.program import GraphProgram
-        from reforge_tpu.kernels import ops as kops
-        from reforge_tpu.kernels import pallas_ops
-
-        (tmp_path / "nblur.comp").write_text(self.ZERO_1D)
-        src = "input -> nblur -> tm -> output\ntm: tonemap {}"
-        graph = build_graph(
-            parse_file(src, expects_input=True, shader_path=str(tmp_path))
-        )
-        prog = GraphProgram(graph, 128, 48)
-        plan = prog._strip_plan
-        assert plan is not None and plan[0] == "mc"
-        assert plan[1]["mode"] == "zero"
-        rng = np.random.default_rng(11)
-        img = jnp.asarray(rng.random((4, 48, 128), dtype=np.float32))
-        t = jnp.float32(0.0)
-        sp = prog._strip_plan
-        prog._strip_plan = None
-        want = np.asarray(prog._forward(img, t))
-        prog._strip_plan = sp
-        monkeypatch.setattr(kops, "_use_pallas", lambda: True)
-        monkeypatch.setattr(
-            pallas_ops,
-            "graph_strip_fused_mc",
-            functools.partial(pallas_ops.graph_strip_fused_mc, interpret=True),
-        )
-        got = prog._strip_fused_forward(img, t)
-        assert got is not None
-        np.testing.assert_allclose(np.asarray(got), want, atol=5e-6)
-
-    def test_mixed_borders_fall_to_segments(self, tmp_path):
-        """Zero-border GLSL conv + edge-border builtin conv cannot share
-        one plan (whole-plan padding); the segments tier isolates each:
-        the GLSL conv gets its own zero-mode child, the builtin keeps
-        per-node (its standalone kernel)."""
-        from reforge_tpu.config import parse_file
-        from reforge_tpu.graph import build_graph
-        from reforge_tpu.graph.program import GraphProgram
-
-        (tmp_path / "nblur.comp").write_text(self.ZERO_1D)
-        src = "input -> nblur -> gs -> output\ngs: gaussian { sigma: 2.0 }"
-        graph = build_graph(
-            parse_file(src, expects_input=True, shader_path=str(tmp_path))
-        )
-        prog = GraphProgram(graph, 128, 48)
-        plan = prog._strip_plan
-        assert plan is not None and plan[0] == "segments"
-        kinds = [
-            (s[0], s[1].name if s[0] == "node" else [n.name for n in s[4]])
-            for s in plan[1]
-        ]
-        assert kinds == [("seg", ["nblur"]), ("node", "gs")], kinds
-        child = plan[1][0][1]
-        assert child._strip_plan[1]["mode"] == "zero"
-
-    def test_pair_composes_to_single_stage(self):
-        from reforge_tpu.config import parse_file
-        from reforge_tpu.graph import build_graph
-        from reforge_tpu.graph.program import GraphProgram
-
-        graph = build_graph(
-            parse_file(
-                self.CASES["pair_compose"], expects_input=True,
-                shader_path="shaders",
-            )
-        )
-        prog = GraphProgram(graph, 128, 48)
-        stages = prog._strip_plan[1]["stages"]
-        kinds = [s.kind for s in stages]
-        assert kinds == ["conv", "point"], kinds
-        conv = stages[0]
-        # composed taps: 13 (v, from sigma 2) x 13 (h) after trimming
-        assert sum(1 for v in conv.wh if v != 0.0) == 13
-        assert sum(1 for v in conv.ww if v != 0.0) == 13
-
-    def test_composed_pair_fuses_at_4k_width(self):
-        """The uncomposed pair is an extent-carrying f32 conv chain
-        (gated at wide frames); composition makes it zero-extent, so the
-        whole graph stays mc at 4K — the reference's primary use mode
-        keeps the flagship path."""
-        from reforge_tpu.config import parse_file
-        from reforge_tpu.graph import build_graph
-        from reforge_tpu.graph.program import GraphProgram
-
-        graph = build_graph(
-            parse_file(
-                self.CASES["pair_compose"], expects_input=True,
-                shader_path="shaders",
-            )
-        )
-        prog = GraphProgram(graph, 3840, 64)
-        assert prog._strip_plan is not None and prog._strip_plan[0] == "mc"
-
-    def test_compose_unit(self):
-        """compose(): kernels convolve, passthrough/offset channels mix."""
-        import numpy as np
-
-        from reforge_tpu.glsl.affine import ConvSynth, compose
-
-        a = ConvSynth(
-            wh=(1.0,), ww=(0.25, 0.5, 0.25), scale=(1.0, 1.0, 1.0, 0.0),
-            passthrough=(0.0, 0.0, 0.0, 1.0), offset=(0.0,) * 4,
-        )
-        b = ConvSynth(
-            wh=(0.5, 0.5), ww=(1.0,), scale=(1.0, 1.0, 1.0, 0.0),
-            passthrough=(0.0, 0.0, 0.0, 1.0), offset=(0.1, 0.0, 0.0, 0.2),
-        )
-        c = compose(a, b)
-        assert c is not None
-        np.testing.assert_allclose(c.wh, (0.5, 0.5))
-        np.testing.assert_allclose(c.ww, (0.25, 0.5, 0.25))
-        assert c.scale == (1.0, 1.0, 1.0, 0.0)
-        assert c.passthrough == (0.0, 0.0, 0.0, 1.0)
-        np.testing.assert_allclose(c.offset, (0.1, 0.0, 0.0, 0.2))
-        # mixed channel classes reject
-        bad = ConvSynth(
-            wh=(1.0,), ww=(0.5, 0.5), scale=(1.0, 1.0, 0.5, 0.0),
-            passthrough=(0.0, 0.0, 0.5, 1.0), offset=(0.0,) * 4,
-        )
-        assert compose(a, bad) is None
-        # SAME-AXIS pairs reject: chained edge-clamped convs on one axis
-        # are not a single conv of the convolved kernel at borders
-        # (3-tap box twice on [3,0,0,...]: chained 5/3 vs composed 2.0).
-        v = ConvSynth(
-            wh=(0.25, 0.5, 0.25), ww=(1.0,), scale=(1.0,) * 4,
-            passthrough=(0.0,) * 4, offset=(0.0,) * 4,
-        )
-        assert compose(v, v) is None
-        hh = ConvSynth(
-            wh=(1.0,), ww=(0.25, 0.5, 0.25), scale=(1.0,) * 4,
-            passthrough=(0.0,) * 4, offset=(0.0,) * 4,
-        )
-        assert compose(hh, hh) is None
-        assert compose(hh, v) is not None  # complementary axes compose
-
-    def test_same_axis_glsl_pair_stays_unmerged_and_exact(self, monkeypatch):
-        """gaussian_v.comp -> gaussian_v.comp must NOT compose (border
-        semantics); the pair still fuses as two stages at narrow widths
-        and matches per-node execution."""
-        import functools
-
-        import jax.numpy as jnp
-
-        from reforge_tpu.config import parse_file
-        from reforge_tpu.graph import build_graph
-        from reforge_tpu.graph.program import GraphProgram
-        from reforge_tpu.kernels import ops as kops
-        from reforge_tpu.kernels import pallas_ops
-
-        src = (
-            "input -> a -> b -> output\n"
-            "a: gaussian_v { sigma: 1.5 }\nb: gaussian_v { sigma: 1.5 }"
-        )
-        graph = build_graph(
-            parse_file(src, expects_input=True, shader_path="shaders")
-        )
-        prog = GraphProgram(graph, 128, 64)
-        assert prog._strip_plan is not None and prog._strip_plan[0] == "mc"
-        convs = [s for s in prog._strip_plan[1]["stages"] if s.kind == "conv"]
-        assert len(convs) == 2, "same-axis pair must not merge"
-        rng = np.random.default_rng(4)
-        img = jnp.asarray(rng.random((4, 64, 128), dtype=np.float32))
-        t = jnp.float32(0.0)
-        sp = prog._strip_plan
-        prog._strip_plan = None
-        want = np.asarray(prog._forward(img, t))
-        prog._strip_plan = sp
-        monkeypatch.setattr(kops, "_use_pallas", lambda: True)
-        monkeypatch.setattr(
-            pallas_ops,
-            "graph_strip_fused_mc",
-            functools.partial(pallas_ops.graph_strip_fused_mc, interpret=True),
-        )
-        got = prog._strip_fused_forward(img, t)
-        assert got is not None
-        np.testing.assert_allclose(np.asarray(got), want, atol=5e-5)
-
-    def test_conv_idiom_cliff_warns_at_wide_frames(self, tmp_path):
-        """A wide-frame conv-idiom shader that can't join the megakernel
-        warns (mirror of the GSPMD kernel cliff warning)."""
-        from reforge_tpu import utils
-        from reforge_tpu.config import parse_file
-        from reforge_tpu.graph import build_graph
-        from reforge_tpu.graph.program import GraphProgram
-
-        # min() of neighbor taps: static shifts (conv idiom, halo 2) but
-        # nonlinear -> synthesis rejects -> per-node at 4K width.
-        (tmp_path / "erode.comp").write_text(
-            """#version 450
-layout (local_size_x = 16, local_size_y = 16) in;
-layout (binding = 0, rgba32f) uniform readonly image2D input_image;
-layout (binding = 1, rgba32f) uniform writeonly image2D output_image;
-void main() {
-    ivec2 pos = ivec2(gl_GlobalInvocationID.xy);
-    ivec2 hi = imageSize(input_image) - ivec2(1);
-    vec4 m = imageLoad(input_image, pos);
-    m = min(m, imageLoad(input_image, clamp(pos + ivec2(2, 0), ivec2(0), hi)));
-    m = min(m, imageLoad(input_image, clamp(pos - ivec2(2, 0), ivec2(0), hi)));
-    imageStore(output_image, pos, m);
+# Whole graphs at their shape and storage format: (config, width, height,
+# format, extra shader files).  Configs naming .comp kernels resolve them
+# in shaders/ (or among the extra files).
+WHOLE_GRAPH_CASES = {
+    "flagship_f32": (FLAGSHIP, 72, 48, "rgba32f", {}),
+    "flagship_rgba8": (FLAGSHIP, 72, 48, "rgba8", {}),
+    "flagship_rgba16f": (FLAGSHIP, 72, 48, "rgba16f", {}),
+    "heavy_conv_f32": (
+        "input -> gs -> tone -> output\n"
+        "gs: gaussian { sigma: 8.0 }\ntone: tonemap { exposure: 1.1 }",
+        128, 96, "rgba32f", {}),
+    "heavy_conv_rgba16f": (
+        "input -> gs -> tone -> output\n"
+        "gs: gaussian { sigma: 8.0 }\ntone: tonemap { exposure: 1.1 }",
+        128, 96, "rgba16f", {}),
+    "coord_planes": (
+        "input -> soften -> vig -> lines -> output\n"
+        "soften: gaussian { sigma: 2.0 }\nvig: vignette { strength: 0.5 }\n"
+        "lines: scanlines { period: 3, darkness: 0.4 }", 72, 48, "rgba32f", {}),
+    "conv_stencil_point": (CONV_STENCIL_POINT, 128, 48, "rgba32f", {}),
+    "conv_stencil_point_rgba8": (CONV_STENCIL_POINT, 128, 48, "rgba8", {}),
+    "conv_stencil_point_rgba16f": (CONV_STENCIL_POINT, 128, 48, "rgba16f", {}),
+    "conv_of_conv": (
+        "input -> a -> b -> output\na: blur { sigma: 3.0 }\nb: blur { sigma: 2.0 }",
+        128, 48, "rgba32f", {}),
+    "bloom": (
+        "input -> glow -> output\n"
+        "glow: bloom { threshold: 0.4, sigma: 3.0, intensity: 0.8 }",
+        128, 48, "rgba32f", {}),
+    "point_feeding_conv_fan": (
+        "input -> th -> bl -> m -> output\ninput -> m:input_image2\n"
+        "th: threshold { value: 0.4 }\nbl: blur { sigma: 2.0 }\n"
+        "m: mix { factor: 0.6 }", 128, 48, "rgba32f", {}),
+    "median_saturation": (
+        "input -> med -> sat -> output\n"
+        "med: median3 {}\nsat: saturation { amount: 1.4 }", 128, 48, "rgba32f", {}),
+    "sharpen_grayscale": (
+        "input -> sh -> gray -> output\n"
+        "sh: sharpen { amount: 0.7 }\ngray: grayscale {}", 128, 48, "rgba32f", {}),
+    "coord_point_feeding_conv": (
+        "input -> v -> b -> output\n"
+        "v: vignette { strength: 0.5 }\nb: blur { sigma: 2.0 }", 128, 48, "rgba32f", {}),
+    "emboss_unsharp_chain": (
+        "input -> e -> u -> output\n"
+        "e: emboss { amount: 0.9 }\nu: unsharp { sigma: 2.0, amount: 0.8 }",
+        128, 48, "rgba32f", {}),
+    "blur_edge_tone_rgba16f": (
+        "input -> gs -> edge -> tone -> output\n"
+        "gs: blur { sigma: 4.0 }\nedge: sobel {}\ntone: tonemap {}",
+        128, 96, "rgba16f", {}),
+    "tone_blur_rgba16f": (
+        "input -> tone -> gs -> output\ntone: tonemap {}\ngs: blur { sigma: 4.0 }",
+        128, 96, "rgba16f", {}),
+    "unsharp_gray_rgba16f": (
+        "input -> u -> gray -> output\n"
+        "u: unsharp { sigma: 4.0, amount: 0.8 }\ngray: grayscale {}",
+        128, 96, "rgba16f", {}),
+    "bloom_rgba16f": (
+        "input -> glow -> output\n"
+        "glow: bloom { threshold: 0.4, sigma: 4.0, intensity: 0.8 }",
+        128, 96, "rgba16f", {}),
+    "conv_of_conv_rgba16f": (
+        "input -> a -> b -> output\na: blur { sigma: 4.0 }\nb: blur { sigma: 3.0 }",
+        128, 96, "rgba16f", {}),
+    "heavy_conv_chain": (
+        "input -> gs -> edge -> tone -> output\n"
+        "gs: gaussian { sigma: 6.0 }\nedge: sobel {}\ntone: tonemap {}",
+        128, 96, "rgba32f", {}),
+    "tone_heavy_conv": (
+        "input -> tone -> gs -> output\ntone: tonemap {}\ngs: gaussian { sigma: 6.0 }",
+        128, 96, "rgba32f", {}),
+    "heavy_conv_of_conv": (
+        "input -> a -> b -> output\n"
+        "a: gaussian { sigma: 6.0 }\nb: gaussian { sigma: 6.0 }",
+        128, 96, "rgba32f", {}),
+    "chain3": (CHAIN3, 128, 48, "rgba32f", {}),
+    "heads_tails": (
+        "input -> tm -> gs -> edge -> tm2 -> output\n"
+        "tm: tonemap {}\ngs: gaussian { sigma: 2 }\n"
+        "edge: sobel {}\ntm2: tonemap {}\n", 128, 48, "rgba32f", {}),
+    "glsl_pair": (GLSL_PAIR, 128, 48, "rgba32f", {}),
+    "glsl_pair_rgba16f": (GLSL_PAIR, 128, 48, "rgba16f", {}),
+    "glsl_sharpen": (
+        "input -> sh -> tm -> output\n"
+        "sh: sharpen { amount: 0.7 }\ntm: tonemap { exposure: 1.0 }",
+        128, 48, "rgba32f", {}),
+    "glsl_conv_point": (
+        "input -> gh -> sep -> output\n"
+        "gh: gaussian_h { sigma: 3.0 }\nsep: sepia {}", 128, 48, "rgba32f", {}),
+    "glsl_point_builtin_conv": (
+        "input -> tm -> b -> output\n"
+        "tm: tonemap { exposure: 1.2 }\nb: blur { sigma: 2.0 }", 128, 48, "rgba32f", {}),
+    "glsl_single_1d": (
+        "input -> gv -> tm -> output\n"
+        "gv: gaussian_v { sigma: 2.0 }\ntm: tonemap {}", 128, 48, "rgba32f", {}),
+    "glsl_same_axis_pair": (
+        "input -> a -> b -> output\n"
+        "a: gaussian_v { sigma: 1.5 }\nb: gaussian_v { sigma: 1.5 }",
+        128, 64, "rgba32f", {}),
+    "glsl_lone_conv_pair_tone": (
+        "input -> a -> b -> tm -> output\n"
+        "a: gaussian_v { sigma: 2.0 }\nb: gaussian_v { sigma: 2.0 }\n"
+        "tm: tonemap {}", 128, 64, "rgba32f", {}),
+    "glsl_asymmetric_conv": (
+        "input -> mblur -> tm -> output\ntm: tonemap {}",
+        128, 48, "rgba32f", {"mblur.comp": ASYM_1D}),
+    "glsl_zero_border_conv": (
+        "input -> nblur -> tm -> output\ntm: tonemap {}",
+        128, 48, "rgba32f", {"nblur.comp": ZERO_1D}),
+    "glsl_zero_border_then_builtin": (
+        "input -> nblur -> gs -> output\ngs: gaussian { sigma: 2.0 }",
+        128, 48, "rgba32f", {"nblur.comp": ZERO_1D}),
 }
-"""
-        )
-        src = "input -> erode -> tm -> output\ntm: tonemap {}"
-        graph = build_graph(
-            parse_file(src, expects_input=True, shader_path=str(tmp_path))
-        )
-        # tonemap resolves to the builtin at this shader_path; erode is
-        # the file kernel under test.
-        utils.clear_warnings()
-        prog = GraphProgram(graph, 3840, 64)
-        # Planning is lazy (it runs when the fused path first traces, on
-        # the engine's background compile): touch the plan as that would.
-        _ = prog._strip_plan
-        assert any(
-            "conv-idiom" in w and "erode" in w for w in utils.recent_warnings()
-        ), utils.recent_warnings()
 
-    def test_lone_glsl_conv_gets_single_node_segment(self, monkeypatch):
-        """A gated (same-axis, extent-carrying) GLSL conv becomes its own
-        single-node mc segment instead of falling to the interpreter's
-        per-node trace — measured 4K: 805 fps vs 399 plain (BENCH.md).
-        Builtin convs keep per-node (their standalone Pallas kernel)."""
-        from reforge_tpu.config import parse_file
-        from reforge_tpu.graph import build_graph
-        from reforge_tpu.graph.program import GraphProgram
-        from reforge_tpu.kernels import ops as kops
 
-        monkeypatch.setattr(kops, "MC_CONV_MAX_WIDTH", 1)  # gate at test size
-        src = (
-            "input -> a -> b -> tm -> output\n"
-            "a: gaussian_v { sigma: 2.0 }\nb: gaussian_v { sigma: 2.0 }\n"
-            "tm: tonemap {}"
-        )
-        graph = build_graph(
-            parse_file(src, expects_input=True, shader_path="shaders")
-        )
-        prog = GraphProgram(graph, 128, 64)
-        plan = prog._strip_plan
-        assert plan is not None and plan[0] == "segments"
-        kinds = [
-            (s[0], s[1].name if s[0] == "node" else [n.name for n in s[4]])
-            for s in plan[1]
-        ]
-        assert kinds == [("seg", ["a"]), ("seg", ["b", "tm"])], kinds
+def _bf16_ulp(v: float) -> float:
+    """bf16 spacing at magnitude v (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(max(v, 2.0 ** -126))) - 7)
 
-    def test_synthesis_survives_in_trace_planning(self):
-        """Planning is lazy and first runs inside the fused jit trace on
-        the engine's background compile; synthesis probes must execute
-        concretely there (ensure_compile_time_eval), not be staged into
-        the outer trace — this silently degraded GLSL convs to the plain
-        path before the fix (caught by the multichip dryrun's warnln)."""
+
+class TestWholeGraph:
+    """The production whole-graph program (one jit of every node) against
+    the reference: per-node execution on the plain kernel path under
+    highest matmul precision, f32 compute, with the format's own storage
+    rounding at every node boundary."""
+
+    @pytest.mark.parametrize("name", sorted(WHOLE_GRAPH_CASES))
+    def test_matches_reference(self, name, tmp_path):
+        import shutil
+
         import jax
-        import jax.numpy as jnp
 
         from reforge_tpu.config import parse_file
-        from reforge_tpu.graph import build_graph
         from reforge_tpu.graph.program import GraphProgram
 
-        graph = build_graph(
-            parse_file(
-                self.CASES["pair_compose"], expects_input=True,
-                shader_path="shaders",
-            )
-        )
-        prog = GraphProgram(graph, 128, 48)
-        assert not prog._strip_planned
-        shape = jax.ShapeDtypeStruct((4, 48, 128), jnp.float32)
-        t = jax.ShapeDtypeStruct((), jnp.float32)
-        prog._fused.lower(shape, t)  # triggers planning inside the trace
-        plan = prog._strip_plan_cache
-        assert plan is not None and plan[0] == "mc"
-        assert [s.kind for s in plan[1]["stages"]] == ["conv", "point"]
+        src, w, h, fmt, files = WHOLE_GRAPH_CASES[name]
+        shader_path = "shaders"
+        if files:
+            shader_path = str(tmp_path)
+            for fname in ("gaussian_h.comp", "gaussian_v.comp"):
+                shutil.copy(f"shaders/{fname}", tmp_path / fname)
+            for fname, text in files.items():
+                (tmp_path / fname).write_text(text)
+        graph = build_graph(parse_file(src, expects_input=True,
+                                       shader_path=shader_path))
+        assert graph is not None, utils.recent_warnings()
+        img = rand_image(h, w, seed=11)
+        t = jnp.float32(0.3)
+
+        got = np.asarray(make_program(graph, w, h, fmt)(img, t), np.float32)
+        with ops.plain_kernels(), jax.default_matmul_precision("highest"):
+            want, _ = GraphProgram(graph, w, h, fmt).run_per_node(img, t)
+        want = np.asarray(want, np.float32)
+
+        assert got.shape == (4, h, w) and np.isfinite(got).all()
+        d = np.abs(got - want).max()
+        nodes = sum(len(layer) for layer in graph.layers)
+        if fmt == "rgba32f":
+            tol = 1e-5  # [0, 1] data: only summation order may differ
+        elif fmt == "rgba16f":
+            # one bf16 ulp per node boundary
+            tol = nodes * _bf16_ulp(float(np.abs(want).max()))
+        else:
+            # one code of the 8-bit grid per node boundary: a boundary that
+            # rounds the other way moves the nodes after it by a code
+            tol = nodes / 255.0 + 1e-6
+        assert d <= tol, (name, fmt, d, tol)

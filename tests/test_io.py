@@ -103,6 +103,123 @@ class TestImageFile:
         np.testing.assert_array_equal(out, rgba)
 
 
+def _png_bytes(px: np.ndarray, ctype: int, filt: int) -> bytes:
+    """A straightforward PNG encoder for one filter type (the reference the
+    numpy codec's unfilter is checked against)."""
+    import struct
+    import zlib
+
+    h, w, ch = px.shape
+    rows = px.reshape(h, w * ch).astype(np.int64)
+    raw = bytearray()
+    prior = np.zeros(w * ch, np.int64)
+    for y in range(h):
+        line = rows[y]
+        out = np.zeros_like(line)
+        for x in range(w * ch):
+            a = line[x - ch] if x >= ch else 0
+            b = prior[x]
+            c = prior[x - ch] if x >= ch else 0
+            if filt == 0:
+                pred = 0
+            elif filt == 1:
+                pred = a
+            elif filt == 2:
+                pred = b
+            elif filt == 3:
+                pred = (a + b) // 2
+            else:
+                p = a + b - c
+                pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+                pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+            out[x] = (line[x] - pred) % 256
+        raw += bytes([filt]) + bytes(out.astype(np.uint8))
+        prior = line
+
+    def chunk(kind, body):
+        crc = zlib.crc32(kind + body) & 0xFFFFFFFF
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", crc)
+
+    return (
+        b"\x89PNG\r\n\x1a\n"
+        + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0))
+        + chunk(b"IDAT", zlib.compress(bytes(raw)))
+        + chunk(b"IEND", b"")
+    )
+
+
+@pytest.fixture
+def no_image_libs(monkeypatch):
+    """Neither the native extension nor PIL: the numpy + zlib PNG codec."""
+    import sys
+
+    monkeypatch.setattr(imagefile, "_lib", None)
+    monkeypatch.setattr(imagefile, "_lib_tried", True)
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    assert imagefile._pil_image() is None
+
+
+class TestNumpyPng:
+    """The PNG codec that needs only numpy and zlib."""
+
+    @pytest.mark.parametrize("filt", [0, 1, 2, 3, 4])
+    @pytest.mark.parametrize("ctype, ch", [(0, 1), (2, 3), (6, 4)])
+    def test_reads_every_filter_and_color_type(self, tmp_path, ctype, ch, filt):
+        px = make_rgba(h=9, w=11, seed=ctype * 10 + filt)[..., :ch]
+        path = tmp_path / "f.png"
+        path.write_bytes(_png_bytes(px, ctype, filt))
+        got = imagefile.png_read(str(path))
+        want = {1: np.repeat(px, 3, axis=2), 3: px, 4: px}[ch]
+        np.testing.assert_array_equal(got[..., :3], want[..., :3])
+        alpha = px[..., 3] if ch == 4 else np.full((9, 11), 255, np.uint8)
+        np.testing.assert_array_equal(got[..., 3], alpha)
+        assert imagefile.png_size(str(path)) == (9, 11)
+
+    def test_write_read_round_trip(self, tmp_path):
+        rgba = make_rgba(h=33, w=47, seed=4)
+        path = str(tmp_path / "w.png")
+        imagefile.png_write(path, rgba)
+        np.testing.assert_array_equal(imagefile.png_read(path), rgba)
+
+    def test_written_png_reads_in_pil(self, tmp_path):
+        Image = pytest.importorskip("PIL.Image")
+        rgba = make_rgba(h=21, w=30, seed=5)
+        path = str(tmp_path / "p.png")
+        imagefile.png_write(path, rgba)
+        with Image.open(path) as im:
+            assert im.mode == "RGBA"
+            np.testing.assert_array_equal(np.asarray(im), rgba)
+
+    def test_decoder_and_encoder_fall_back_to_it(self, tmp_path, no_image_libs):
+        rgba = make_rgba()
+        path = str(tmp_path / "z.png")
+        encode(path, rgba)
+        dec = ImageFileDecoder(path)
+        assert (dec.width, dec.height) == (56, 40)
+        np.testing.assert_array_equal(dec.decode(56, 40), rgba)
+
+    def test_without_libs_jpeg_and_resize_raise(self, tmp_path, no_image_libs):
+        rgba = make_rgba()
+        with pytest.raises(imagefile.ImageFileError, match="PNG works"):
+            encode(str(tmp_path / "z.jpg"), rgba)
+        path = str(tmp_path / "z.png")
+        encode(path, rgba)
+        with pytest.raises(imagefile.ImageFileError, match="resizing"):
+            ImageFileDecoder(path).decode(28, 20)
+
+    def test_rejects_what_it_cannot_read(self, tmp_path):
+        bad = tmp_path / "bad.png"
+        bad.write_bytes(b"not a png at all")
+        with pytest.raises(imagefile.ImageFileError, match="not a PNG"):
+            imagefile.png_read(str(bad))
+        pal = tmp_path / "pal.png"
+        pal.write_bytes(_png_bytes(make_rgba(4, 4)[..., :1], 0, 0)
+                        .replace(b"IHDR\x00\x00\x00\x04\x00\x00\x00\x04\x08\x00",
+                                 b"IHDR\x00\x00\x00\x04\x00\x00\x00\x04\x08\x03"))
+        with pytest.raises(imagefile.ImageFileError, match="8-bit"):
+            imagefile.png_read(str(pal))
+
+
 class TestVideo:
     def test_video_round_trip(self, tmp_path):
         if not native_backend_available():

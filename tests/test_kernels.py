@@ -353,63 +353,3 @@ class TestStylizedKernels:
         # Zero strength is identity.
         out0 = np.asarray(run("radial_blur", img, {"strength": 0.0}))
         np.testing.assert_allclose(out0[:3], i[:3], atol=1e-4)
-
-
-class TestChannelLocalForms:
-    """Every kernel's cw (channel-local) form must match its full (4,H,W)
-    form exactly — the strip megakernel relies on this equivalence."""
-
-    def test_cw_matches_full(self):
-        import jax.numpy as jnp
-
-        from reforge_tpu.kernels.base import KernelContext, builtin_kernels
-
-        rng = np.random.default_rng(8)
-        h, w = 24, 32
-        a = jnp.asarray(rng.random((4, h, w), dtype=np.float32))
-        b = jnp.asarray(rng.random((4, h, w), dtype=np.float32))
-        ctx = KernelContext(width=w, height=h, time=0.4)
-        checked = 0
-        for name, spec in sorted(builtin_kernels().items()):
-            if spec.cw_fn is None:
-                continue
-            params = spec.resolve_params({})
-            images = {d: (a if i == 0 else b)
-                      for i, d in enumerate(spec.images_in)}
-            full = np.asarray(spec(ctx, images, params)[spec.images_out[0]])
-            for ci in range(4):
-                ins = {d: img[ci] for d, img in images.items()}
-                got = np.asarray(spec.cw_fn(ctx, jnp.int32(ci), ins, params))
-                np.testing.assert_array_equal(got, full[ci], err_msg=f"{name} ch{ci}")
-            checked += 1
-        assert checked >= 12, checked
-
-    def test_conv_epilogue_cw_matches(self):
-        import jax.numpy as jnp
-
-        from reforge_tpu.kernels.base import KernelContext, builtin_kernels
-        from reforge_tpu.kernels import ops as kops
-
-        rng = np.random.default_rng(9)
-        h, w = 24, 32
-        x = jnp.asarray(rng.random((4, h, w), dtype=np.float32))
-        ctx = KernelContext(width=w, height=h, time=0.0)
-        checked = 0
-        for name, spec in sorted(builtin_kernels().items()):
-            if spec.conv_weights is None or spec.conv_epilogue_cw is None:
-                continue
-            params = spec.resolve_params({})
-            plan = spec.conv_weights(params)
-            if plan is None:
-                continue
-            blurred = kops.sep_conv(x, *plan)
-            full = np.asarray(spec(ctx, {"input_image": x}, params)["output_image"])
-            for ci in range(4):
-                got = np.asarray(
-                    spec.conv_epilogue_cw(ctx, jnp.int32(ci), x[ci], blurred[ci], params)
-                )
-                np.testing.assert_allclose(
-                    got, full[ci], atol=1e-6, err_msg=f"{name} ch{ci}"
-                )
-            checked += 1
-        assert checked >= 4, checked

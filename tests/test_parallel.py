@@ -310,24 +310,31 @@ class TestGspmdSharding:
         got = np.asarray(sharded(sharded.shard_input(img), 0.25))
         np.testing.assert_allclose(got, want, atol=1e-5, err_msg=name)
 
-    def test_warns_on_tpu_mesh_kernel_cliff(self, mesh, monkeypatch):
-        # GSPMD drops the Pallas megakernel (portable kernels only); the
-        # user must be told when that happens on real hardware.
-        from reforge_tpu.parallel import spatial
+    def test_gspmd_traces_plain_kernels(self, mesh, monkeypatch):
+        """A custom call cannot be partitioned: on a GPU backend the GSPMD
+        program traces the plain separable conv, while the per-device halo
+        program may use the CUDA kernel."""
+        from reforge_tpu.kernels import cuda_sepconv, ops
 
-        prog = build(CASES["pointwise"])
-        utils.clear_warnings()
-        shard_program(prog, mesh)
-        assert not any(
-            "portable" in w for w in utils.recent_warnings()
-        ), "CPU mesh must not warn"
+        calls = []
 
-        monkeypatch.setattr(spatial, "_mesh_is_tpu", lambda m: True)
-        utils.clear_warnings()
-        shard_program(prog, mesh)
-        assert any(
-            "portable" in w and "--shard" in w for w in utils.recent_warnings()
-        ), utils.recent_warnings()
+        def spy(x, wh, ww, mode="edge"):
+            calls.append(x.shape)
+            with ops.plain_kernels():
+                return ops.sep_conv(x, wh, ww, mode)
+
+        monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+        monkeypatch.setattr(cuda_sepconv, "sep_conv", spy)
+        prog = build(CASES["conv"])
+        calls.clear()  # make_program's validation trace is not under test
+        args = (
+            jax.ShapeDtypeStruct((4, 64, 64), jnp.float32),
+            jax.ShapeDtypeStruct((), jnp.float32),
+        )
+        shard_program(prog, mesh)._fused.lower(*args)
+        assert calls == []
+        HaloShardedProgram(prog, mesh)._fused.lower(*args)
+        assert calls and all(shape[0] == 4 for shape in calls)
 
 
 class TestBorderModes:
@@ -474,93 +481,3 @@ class TestPipelineParallel:
                 np.asarray(got[i]), np.asarray(prog(f, t)), atol=1e-5,
                 err_msg=f"frame {i}",
             )
-
-
-class TestStripLocalHalo:
-    def test_strip_local_matches_per_node(self, mesh, monkeypatch):
-        """The megakernel-per-shard path (ONE input halo exchange + whole
-        graph in one kernel on the extended slab) == the per-node path.
-
-        CPU meshes normally skip it (no Pallas); force it with interpret
-        mode, exactly like the single-device strip tests."""
-        import functools
-
-        from reforge_tpu.kernels import ops as kops
-        from reforge_tpu.kernels import pallas_ops
-
-        src = (
-            "input -> soften -> mixer -> tone -> output\n"
-            "input -> crisp -> mixer:input_image2\n"
-            "soften: gaussian { sigma: 2.0 }\n"
-            "crisp: unsharp { sigma: 1.5, amount: 0.7 }\n"
-            "mixer: mix { factor: 0.5 }\n"
-            "tone: tonemap { exposure: 1.1 }\n"
-        )
-        prog = build(src, w=64, h=64)
-        assert prog._strip_plan is not None
-        img = rand_image()
-
-        monkeypatch.setattr(pallas_ops, "pallas_available", lambda: True)
-        monkeypatch.setattr(
-            pallas_ops,
-            "graph_strip_fused",
-            functools.partial(pallas_ops.graph_strip_fused, interpret=True),
-        )
-        # Width gate: the strip plan requires the transpose variant.
-        monkeypatch.setattr(pallas_ops, "TRANSPOSE_MIN_WIDTH", 32)
-
-        sharded = HaloShardedProgram(prog, mesh)
-        monkeypatch.setattr(sharded, "_mesh_is_tpu", True)
-        calls = []
-        orig = sharded._strip_local
-
-        def spy(x, t, idx):
-            out = orig(x, t, idx)
-            calls.append(out is not None)
-            return out
-
-        monkeypatch.setattr(sharded, "_strip_local", spy)
-        got = np.asarray(sharded(sharded.shard_input(img), 0.25))
-        assert calls and all(calls), "strip-local path did not engage"
-        want = np.asarray(prog(img, 0.25))
-        np.testing.assert_allclose(got, want, atol=1e-5)
-
-    def test_strip_local_mc_edge_hazard_exact(self, mesh, monkeypatch):
-        """mc plans whose stages read INTERMEDIATES with a halo (conv of
-        conv, stencil of conv) are border-hazardous on replica-extended
-        slabs: the unsharded kernel clamps the intermediate at the true
-        image edge, compute-through does not.  The edge-aware slab
-        variants (halo.py _strip_local_hazard, lax.switch over
-        top/mid/bottom shards) must match the unsharded program EXACTLY
-        at the borders — this failed with a 0.22 max-abs border error
-        before round 5's fix (caught by the multichip dryrun probe)."""
-        import os
-
-        from reforge_tpu.kernels import pallas_ops
-
-        src = (
-            "input -> gs -> edge -> tone -> output\n"
-            "gs: gaussian { sigma: 2.0 }\nedge: sobel {}\ntone: tonemap {}\n"
-        )
-        # h_local=48: the hazard path's radius search lands on R=16
-        # (48+2R=80 and 48+R=64 both admit tile 16 >= rh_in).
-        prog = build(src, w=256, h=48 * 8)
-        assert prog._strip_plan is not None and prog._strip_plan[0] == "mc"
-        assert prog._strip_plan[1]["edge_hazard"]
-        img = rand_image(h=48 * 8, w=256)
-        want = np.asarray(prog(img, 0.0))
-
-        calls = []
-        orig = prog._strip_fused_forward
-
-        def spy(*a, **k):
-            out = orig(*a, **k)
-            calls.append(out is not None)
-            return out
-
-        monkeypatch.setattr(prog, "_strip_fused_forward", spy)
-        monkeypatch.setenv("REFORGE_PALLAS_INTERPRET", "1")
-        sharded = HaloShardedProgram(prog, mesh)
-        got = np.asarray(sharded(sharded.shard_input(img), 0.0))
-        assert calls and all(calls), "hazard strip path did not engage"
-        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
